@@ -1,0 +1,173 @@
+"""The port's legacy rip-detector step against the JAX legacy step.
+
+Both start from the same state: the JAX init state, carried across with
+``convert.legacy_state_from_numpy``, with framecount set past the 30-frame
+warmup and a random accumulator so that the duty mask is live. Both then
+step over the same 3 moving-texture frames, and all ten LegacyOutputs
+fields and the new state are compared.
+
+The JAX side runs exactly the TPU's path in interpret mode: the fused
+Pallas kernels and the blocked expansion prep with bf16 matmul inputs,
+which is what the port implements. The remaining differences are one-ULP
+bf16 flips in the expansion tables (summation order), which the chaotic
+winsize-3 legacy preset grows over 3 frames to ~0.016 px mean
+displacement difference, and which move some continuous-valued uint8
+views by a level.
+
+Bounds are about 3x what was measured on this input (in brackets):
+share of differing pixels for the uint8 views, IoU for the mask, mean
+and p99 of the field displacement difference in px.
+"""
+
+import functools
+import importlib
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from ripcurrents_tpu.pipelines.common import ModeConfig as JaxModeConfig
+from ripcurrents_tpu.pipelines.legacy import make_legacy as jax_make_legacy
+from ripcurrents_tpu_torch import convert
+from ripcurrents_tpu_torch.pipelines.common import ModeConfig
+from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
+
+jfb = importlib.import_module("ripcurrents_tpu.flow.farneback")
+
+torch.set_num_threads(1)
+
+RH, RW = 288, 384          # raw frame; the pipeline works at 192x256
+
+BOUNDS = {                              # [measured]
+    "overlay_bgr": 0.001,               # [0.00016]
+    "streamlines_bgr": 0.001,           # [0]
+    "density_bgr": 0.015,               # [0.0051]
+    "displacement_bgr": 0.04,           # [0.013]
+    "distance_bgr": 0.04,               # [0.013]
+    "ratio_bgr": 0.1,                   # [0.035]
+    "flow_hsv_bgr": 0.4,                # [0.14]
+    "duty_bgr": 0.002,                  # [0.00039]
+    "hist_wheel_bgr": 0.1,              # [0.034]
+}
+MASK_IOU = 0.995                        # [0.99909]
+DISP = (0.05, 0.4)                      # (mean, p99) [0.016, 0.13]
+
+
+def _frames(n):
+    rng = np.random.default_rng(0)
+    yy = np.mgrid[0:RH, 0:RW][0].astype(np.float32)
+    base = rng.uniform(0, 255, (RH, RW)).astype(np.float32)
+    k = np.ones(7) / 7
+    for ax in (0, 1):
+        base = np.apply_along_axis(
+            lambda m: np.convolve(m, k, mode="same"), ax, base)
+    out = []
+    for t in range(n):
+        wave = 50 * np.sin(2 * np.pi * (yy / 30.0 - t * 0.11)) * (yy / RH)
+        g = np.clip(np.roll(base, 2 * t, axis=1) * 0.7 + wave + 50, 0, 255)
+        out.append(np.stack([g * 0.9, g, np.clip(g * 1.1, 0, 255)],
+                            -1).astype(np.uint8))
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """(JAX outputs+state, port outputs+state) after 3 steps."""
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jfb, "_pallas_ok",
+               functools.lru_cache(maxsize=1)(lambda: True))
+    try:
+        frames = _frames(4)
+        kw = dict(xdim=256, ydim=192, total_frames=40, legacy_seeds=16)
+        jinit, jstep = jax_make_legacy(JaxModeConfig(**kw))
+        _, tstep = make_legacy(ModeConfig(**kw), device="cpu")
+        with pltpu.force_tpu_interpret_mode():
+            js = jax.tree.map(np.asarray, jinit(jnp.asarray(frames[0])))
+            acc = np.random.default_rng(1).integers(0, 9, (192, 256))
+            js = js._replace(accumulator=acc.astype(np.float32),
+                             framecount=np.int32(35))
+            ts = convert.legacy_state_from_numpy(js)
+            js = jax.tree.map(jnp.asarray, js)
+            step = jax.jit(jstep)
+            for f in frames[1:]:
+                js, jo = step(js, jnp.asarray(f))
+                ts, to = tstep(ts, f)
+            jo, js = jax.tree.map(np.asarray, (jo, js))
+    finally:
+        mp.undo()
+    return (jo, js), (to, ts)
+
+
+@pytest.mark.parametrize("field", list(BOUNDS))
+def test_uint8_views(runs, field):
+    (jo, _), (to, _) = runs
+    got, want = getattr(to, field).numpy(), getattr(jo, field)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    frac = (got != want).any(-1).mean()
+    assert frac <= BOUNDS[field], frac
+
+
+def test_mask_iou(runs):
+    (jo, _), (to, _) = runs
+    a, b = to.mask.numpy() > 0, jo.mask > 0
+    assert 0.05 < b.mean() < 0.95          # the duty mask is live
+    iou = (a & b).sum() / (a | b).sum()
+    assert iou >= MASK_IOU, iou
+
+
+def test_state(runs):
+    (_, js), (_, ts) = runs
+    tn = convert.legacy_state_to_numpy(ts)
+    d = np.sqrt(((tn["disp"] - js.field.disp) ** 2).sum(-1))
+    assert d.mean() <= DISP[0] and np.percentile(d, 99) <= DISP[1], \
+        (d.mean(), np.percentile(d, 99))
+    assert tn["framecount"] == js.framecount == 38
+    assert tn["upper"].shape == () and \
+        abs(float(tn["upper"]) - float(js.upper)) <= 0.05
+    for k, want in (("histsum", js.hist.histsum), ("hist", js.hist.hist)):
+        assert tn[k].shape == np.shape(want)
+    # the carried expansion tables: the new frame's prep [mean 9e-7]
+    for i, e in enumerate(js.fstream.exp):
+        e = np.asarray(e).astype(np.float32)
+        assert tn[f"exp{i}"].shape == e.shape
+        assert np.abs(tn[f"exp{i}"] - e).mean() < 1e-5
+    assert tn["seeds"].shape == js.seeds.shape
+    assert (tn["overlay"] != js.overlay).mean() <= BOUNDS["streamlines_bgr"]
+
+
+def test_make_legacy_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError):
+        make_legacy(ModeConfig())
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py, imports with jax and
+    the JAX package blocked (None in sys.modules makes their import
+    raise)."""
+    code = (
+        "import sys, pkgutil, importlib, importlib.util\n"
+        "for name in ('jax', 'jaxlib', 'ripcurrents_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import ripcurrents_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "'ripcurrents_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(len(mods))\n")
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=repo)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 20
