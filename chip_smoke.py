@@ -9,21 +9,30 @@ CUDA toolkit:
 
 Every phase passes or raises (the script catches nothing):
 
-1. the card's name and power limit; build the kernels of ``csrc/`` with
-   nvcc for sm_90a and print the build time and the ptxas report;
+1. the card's name and power limit; build the four kernels of ``csrc/``
+   with nvcc for sm_90a and print the build time and the ptxas report;
 2. K1 (farneback_update), K2 (farneback_blur_solve) and the level loop
    against their plain versions on the card, at the main path's shapes:
    640x480 level 0 of the legacy preset (table (5, 544, 896) bf16, bres 4,
    128-wide subcolumns, box 3) and 1080p level 0 of the windowed preset
-   (bres 1, 640-wide subcolumns, Gaussian 10);
+   (bres 1, 640-wide subcolumns, Gaussian 10); K4 (resize_cf_padded)
+   against its plain version and the dense two-matmul form at every level
+   change of both; K3 (lk_track) against its plain version at 640x480
+   with 201 points, 1280 points and 2 streams x 201 points, border and
+   out-of-image points included;
 3. the legacy rip detector (``make_legacy``, 250 seeds) on 40 synthetic
    1280x720 moving-texture frames at 640x480: finite outputs of the right
-   shapes, a live duty mask, K1 and K2 each launched 6 times per frame;
-   then the whole step at 192x256 on the card against the same step on
-   the CPU (plain versions);
+   shapes, a live duty mask, K1 and K2 each launched 6 times and K4 twice
+   per frame; then the whole step at 192x256 on the card against the same
+   step on the CPU (plain versions);
 4. the windowed Farneback stream at 1920x1080;
-5. each kernel's time per launch at 640x480 level 0 beside its plain
-   version, its bound and a library call, as one JSON line.
+5. each kernel's time per launch at the 640x480 shapes beside its plain
+   version, its bound and a library call, as one JSON line;
+6. the particle modes through ``run_frames`` at 640x480 from 1280x720
+   frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
+   ``streaklines`` (1280 vertices), ``populationMap`` and
+   ``flowRedPoints``; then ``timelines`` at 192x256 on the card against
+   the same steps on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -42,10 +51,15 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from ripcurrents_tpu_torch import kernels
-from ripcurrents_tpu_torch.config import FarnebackParams
+from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
+from ripcurrents_tpu_torch.dynamics.particles import timeline_init
 from ripcurrents_tpu_torch.flow import farneback as fb
 from ripcurrents_tpu_torch.flow import fused_update as fu
-from ripcurrents_tpu_torch.pipelines.common import ModeConfig
+from ripcurrents_tpu_torch.flow import lucas_kanade as lk
+from ripcurrents_tpu_torch.flow.lk_kernel import lk_track, lk_track_plain
+from ripcurrents_tpu_torch.ops import image as img_ops
+from ripcurrents_tpu_torch.pipelines import modes, runner
+from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
 from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
 from ripcurrents_tpu_torch.synthetic import moving_frames
 
@@ -63,6 +77,28 @@ K1_FRAC = 1e-4              # ... on at most this share of elements
 K2_TOL = 1e-5               # flow: |d| <= K2_TOL * (1 + |plain|)
 LEVEL_TOL = 2e-3            # level flow: rtol = atol (the JAX package's
                             # level-vs-chain bound)
+
+# K4 and its plain version round alike (each two-tap sum one FMA in
+# ascending source index) and are required to agree bit for bit. The dense
+# two-matmul form sums the same two nonzero terms among zeros, but how
+# cuBLAS splits the source axis over accumulators decides whether its sum
+# rounds once (an FMA chain) or twice, and that changes with the shape: it
+# is held to K4 within a few float32 ULPs, |d| <= K4_DENSE_REL * (1 + |x|).
+K4_TOL = 0.0
+K4_DENSE_REL = 4 * 2.0 ** -23
+# K3 sums its 2500-term windows in another order than its plain version,
+# and a sum on the edge of a stopping rule can send a point another way:
+# points within LK_PX for >= LK_SHARE of the points both track, median
+# under LK_MEDIAN px, err within LK_ERR_RTOL, status equal on >= LK_SHARE.
+LK_PX = 1e-3
+LK_MEDIAN = 1e-4
+LK_SHARE = 0.99
+LK_ERR_RTOL = 1e-4         # plus 1e-7 absolute
+# A particle mode on the card vs on the CPU over 3 frames: the frame
+# resize's matmul rounding can move a uint8 pixel by one level, which the
+# tracker turns into a small shift of a vertex.
+MODE_VERTEX_PX = 0.05
+MODE_PIXEL_SHARE = 0.999
 
 RAW_H, RAW_W = 720, 1280
 FRAMES = 40
@@ -144,6 +180,124 @@ def check_kernels(h, w, p: FarnebackParams, device, iterations=2):
             "level_mean": d3.mean().item()}
 
 
+def upsample_geometries(h, w, p: FarnebackParams):
+    """(src_true, dst_true, src_pad, dst_pad, scale) of every level change
+    of the Farneback pyramid of preset p at (h, w), coarsest first."""
+    out, prev = [], None
+    for k in range(p.levels, -1, -1):
+        _, lh, lw, _, _ = fb._level_geometry(h, w, p, k)
+        th = fu._row_tile(lh)
+        pad = (-(-lh // th) * th, -(-lw // 128) * 128)
+        if prev is not None:
+            out.append((prev[0], (lh, lw), prev[1], pad, 1.0 / p.pyr_scale))
+        prev = ((lh, lw), pad)
+    return out
+
+
+def _padded_flow(src_true, src_pad, device, seed=0):
+    """A random flow of a few px on the true region, zero pads."""
+    g = torch.Generator().manual_seed(seed)
+    flow = torch.zeros((2,) + tuple(src_pad), dtype=torch.float32)
+    flow[:, :src_true[0], :src_true[1]] = \
+        torch.randn((2,) + tuple(src_true), generator=g) * 3
+    return flow.to(device)
+
+
+def check_resize(h, w, p: FarnebackParams, device):
+    """K4 against its plain version and the dense two-matmul form at every
+    level change of preset p at (h, w). Returns the largest deviations;
+    raises past K4_TOL and K4_DENSE_REL."""
+    worst = {"k4_vs_plain": 0.0, "k4_vs_dense": 0.0}
+    for i, (st, dt, sp, dp, scale) in enumerate(upsample_geometries(h, w,
+                                                                    p)):
+        flow = _padded_flow(st, sp, device, seed=i)
+        got = img_ops.resize_bilinear_cf_padded(flow, st, dt, dp, scale)
+        key = img_ops.resize_key(flow, st, dt, dp, scale)
+        plain = img_ops.resize_cf_padded_plain(
+            flow, *img_ops._padded_taps_on(key, flow.device))
+        dense = img_ops.resize_cf_padded_dense(flow, key)
+        d_plain = (got - plain).abs().max().item()
+        d_dense = (got - dense).abs().max().item()
+        dense_ok = bool(((got - dense).abs() <=
+                         K4_DENSE_REL * (1 + dense.abs())).all())
+        true = torch.zeros_like(got, dtype=torch.bool)
+        true[:, :dt[0], :dt[1]] = True
+        pads = got.masked_fill(true, 0.0).abs().max().item()
+        if d_plain > K4_TOL or not dense_ok or pads != 0.0:
+            raise AssertionError(
+                f"K4 disagrees at {st}->{dt}: vs plain {d_plain}, vs dense "
+                f"{d_dense}, pads {pads}")
+        worst["k4_vs_plain"] = max(worst["k4_vs_plain"], d_plain)
+        worst["k4_vs_dense"] = max(worst["k4_vs_dense"], d_dense)
+    return worst
+
+
+def lk_points(n, h, w, seed, win=50):
+    """n track points at (h, w): random ones, a third of them within `win`
+    px of one of the four borders, plus corners and points outside the
+    image."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 2), generator=g)
+    pts = u * torch.tensor([w - 1.0, h - 1.0])
+    k = torch.arange(n) % 12
+    pts[k == 0, 0] = u[k == 0, 0] * win                  # left
+    pts[k == 3, 1] = u[k == 3, 1] * win                  # top
+    pts[k == 6, 0] = (w - 1.0) - u[k == 6, 0] * win      # right
+    pts[k == 9, 1] = (h - 1.0) - u[k == 9, 1] * win      # bottom
+    extra = torch.tensor([[0.0, 0.0], [w - 1.0, h - 1.0], [-10.0, h / 2],
+                          [w + 20.0, h + 20.0], [-300.0, -300.0],
+                          [5000.0, 20.0]])
+    pts[:len(extra)] = extra
+    return pts
+
+
+def lk_inputs(device, streams=1):
+    """Two consecutive 640x480 gray frames per stream: the tracker's
+    inputs."""
+    f = moving_frames(streams + 1, 480, 640, device, color=False)
+    return f[:streams].contiguous(), f[1:streams + 1].contiguous()
+
+
+def check_lk(device, n, streams=1, p: LKParams = LKParams.particles(),
+             timeline=False):
+    """K3 against its plain version at 640x480 on `streams` x n points.
+    Returns the deviations; raises past the LK_* bounds."""
+    prev, nxt = lk_inputs(device, streams)
+    if timeline:
+        pts = timeline_init((10.0, 150.0), (630.0, 400.0), n - 1).vertices
+        pts = torch.cat([lk_points(8, 480, 640, 1), pts[8:]])[None]
+    else:
+        pts = torch.stack([lk_points(n, 480, 640, 10 + s)
+                           for s in range(streams)])
+    pts = pts.to(device)
+    pyr_prev, pyr_next, derivs = lk.prepare(prev, nxt, p)
+    out, iters = lk_track(pyr_prev, pyr_next, derivs, pts, p)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)   # a fault in the kernel shows here
+    ref, ref_iters = lk_track_plain(pyr_prev, pyr_next, derivs, pts, p)
+    st, st_ref = out[..., 2] > 0.5, ref[..., 2] > 0.5
+    both = st & st_ref
+    d = (out[..., :2] - ref[..., :2]).norm(dim=-1)
+    finite = torch.isfinite(d)
+    if not bool(finite.all()) or int(both.sum()) < n * streams // 2:
+        raise AssertionError(f"K3: {int((~finite).sum())} non-finite "
+                             f"points, {int(both.sum())} tracked")
+    dt = d[both]
+    res = {"points": n * streams, "tracked": int(both.sum()),
+           "px_max": d.max().item(), "px_median": dt.median().item(),
+           "share_within": (dt <= LK_PX).float().mean().item(),
+           "status_equal": (st == st_ref).float().mean().item(),
+           "err_excess": ((out[..., 3] - ref[..., 3]).abs() -
+                          LK_ERR_RTOL * ref[..., 3].abs()).max().item(),
+           "iters_mean": iters.float().mean().item(),
+           "iters_equal": (iters == ref_iters).float().mean().item()}
+    if res["share_within"] < LK_SHARE or res["px_median"] >= LK_MEDIAN or \
+            res["status_equal"] < LK_SHARE or \
+            res["err_excess"] > 1e-7:
+        raise AssertionError(f"K3 disagrees: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the legacy step
 # ---------------------------------------------------------------------------
@@ -168,18 +322,28 @@ def check_legacy_outputs(outs, cfg):
             raise AssertionError(f"{f}: {t.dtype} {tuple(t.shape)}")
 
 
+def _dense_upsample(img, src_true, dst_true, dst_pad, scale=1.0):
+    return img_ops.resize_cf_padded_dense(
+        img, img_ops.resize_key(img, src_true, dst_true, dst_pad, scale))
+
+
 def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
-               raw_hw=(RAW_H, RAW_W)):
-    """The main path: make_legacy at xdim x ydim (default 640x480, 250
+               raw_hw=(RAW_H, RAW_W), dense_upsample=False):
+    """The legacy path: make_legacy at xdim x ydim (default 640x480, 250
     seeds) over `frames` synthetic raw frames. Returns (ms per warm frame
-    by host clock, ms by CUDA events or None, launches of K1 and K2,
-    mask share)."""
+    by host clock, ms by CUDA events or None, launches of K1, K2 and K4,
+    mask share). dense_upsample=True swaps K4 for the dense two-matmul
+    form for this run, to time the step with and without the kernel in
+    one process."""
+    fb.resize_bilinear_cf_padded = _dense_upsample if dense_upsample \
+        else img_ops.resize_bilinear_cf_padded
     cfg = ModeConfig(xdim=xdim, ydim=ydim, total_frames=frames)
     raw = moving_frames(frames + 1, *raw_hw, device)
     init, step = make_legacy(cfg, device=device)
     state = init(raw[0])
     fu.farneback_update.launches = 0
     fu.farneback_blur_solve.launches = 0
+    img_ops.resize_bilinear_cf_padded.launches = 0
     warm = 5
     cuda = device.type == "cuda"
     for t in range(1, frames + 1):
@@ -197,7 +361,8 @@ def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
     host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
     ev_ms = ev0.elapsed_time(ev1) / (frames - warm) if cuda else None
     launches = (fu.farneback_update.launches,
-                fu.farneback_blur_solve.launches)
+                fu.farneback_blur_solve.launches,
+                img_ops.resize_bilinear_cf_padded.launches)
     check_legacy_outputs(outs, cfg)
     for f in ("disp", "dist"):
         if not bool(torch.isfinite(getattr(state.field, f)).all()):
@@ -259,6 +424,95 @@ def run_stream_1080p(device, frames=8, warm=3):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the particle modes through run_frames
+# ---------------------------------------------------------------------------
+
+_VERTICES = {"timelines": lambda s: s.timeline.vertices,
+             "streaklines": lambda s: s.verts,
+             "populationMap": lambda s: s.pop.vertices,
+             "flowRedPoints": lambda s: s.pts}
+# the colour of the last primitive each mode draws
+_COLOUR = {"timelines": modes.BLUE, "streaklines": modes.BLUE,
+           "populationMap": None, "flowRedPoints": modes.RED}
+
+
+def run_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
+             raw_hw=(RAW_H, RAW_W), warm=2):
+    """One particle mode through run_frames over `frames` synthetic raw
+    frames. Returns (ms per warm frame by host clock, ms by CUDA events or
+    None, K3 launches, vertices, last output frame); raises on a bad
+    output."""
+    raw = moving_frames(frames + 1, *raw_hw, device)
+    init_state = MODES[mode](cfg, device=device)[0](raw[0])
+    start = _VERTICES[mode](init_state).clone()
+    lk_track.launches = 0
+    stats = runner.RunStats()
+    cuda = device.type == "cuda"
+    out = None
+    for t, out in enumerate(runner.run_frames(mode, raw, cfg, device=device,
+                                              stats=stats), 1):
+        if t == warm:
+            if cuda:
+                torch.cuda.synchronize(device)
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            t0 = time.perf_counter()
+    if cuda:
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        torch.cuda.synchronize(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
+    ev_ms = ev0.elapsed_time(ev1) / (frames - warm) if cuda else None
+    launches = lk_track.launches
+    if stats.frames != frames or int(stats.state.framecount) != frames:
+        raise AssertionError(f"{mode}: {stats.frames} frames stepped")
+    if tuple(out.shape) != (cfg.ydim, cfg.xdim, 3) or \
+            out.dtype != torch.uint8:
+        raise AssertionError(f"{mode}: output {out.dtype} "
+                             f"{tuple(out.shape)}")
+    verts = _VERTICES[mode](stats.state)
+    if verts.shape != start.shape or not bool(torch.isfinite(verts).all()):
+        raise AssertionError(f"{mode}: bad vertices {tuple(verts.shape)}")
+    moved = (verts - start).norm(dim=-1)
+    if mode == "streaklines":      # slots beyond the live count stay put
+        moved = moved[:, :frames]
+    if float(moved.max()) < 0.5:
+        raise AssertionError(f"{mode}: no vertex moved")
+    if _COLOUR[mode] is not None:
+        colour = torch.tensor(_COLOUR[mode], dtype=torch.uint8,
+                              device=device)
+        if int((out == colour).all(dim=-1).sum()) == 0:
+            raise AssertionError(f"{mode}: nothing drawn")
+    elif bool((out == img_ops.resize_bilinear(
+            raw[-1], (cfg.ydim, cfg.xdim))).all()):
+        raise AssertionError(f"{mode}: nothing drawn")    # blended dots
+    return host_ms, ev_ms, launches, verts, out
+
+
+def compare_timelines_small(device, n=3):
+    """timelines at 192x256 on `device` against the same steps on the CPU
+    (plain versions), from the same state and frames."""
+    cfg = ModeConfig(xdim=256, ydim=192, timeline_start=(10.0, 60.0),
+                     timeline_end=(246.0, 150.0))
+    raw = moving_frames(n + 1, 288, 384, torch.device("cpu"))
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        stats = runner.RunStats()
+        outs = list(runner.run_frames("timelines", raw, cfg, device=dev,
+                                      stats=stats))
+        res[dev.type] = (stats.state.timeline.vertices.cpu(),
+                         outs[-1].cpu())
+    (vg, og), (vc, oc) = res[device.type], res["cpu"]
+    d = (vg - vc).norm(dim=-1)
+    out = {"vertex_max_px": d.max().item(), "vertex_mean_px": d.mean().item(),
+           "pixels_equal": (og == oc).all(dim=-1).float().mean().item()}
+    if out["vertex_max_px"] > MODE_VERTEX_PX or \
+            out["pixels_equal"] < MODE_PIXEL_SHARE:
+        raise AssertionError(f"timelines on {device} vs CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -295,7 +549,9 @@ def device_ms(fn, reps):
 
 
 def kernel_rows(device, launches, devs):
-    """Timing rows at 640x480 level 0 of the legacy preset."""
+    """Timing rows at the 640x480 shapes: K1, K2 and K4 at level 0 of the
+    legacy preset, K3 on the 201 timeline vertices. launches: (K1, K2, K4,
+    K3) counts of the main paths; devs: the deviations of phase 2."""
     p = FarnebackParams.legacy()
     h, w = 480, 640
     bres = _bres(p, h, w)
@@ -332,6 +588,46 @@ def kernel_rows(device, launches, devs):
                  mode="replicate").to(torch.bfloat16)
     lib_ms = device_ms(lambda: F.conv2d(mpad, weight, groups=5), 100)
 
+    # K4 at the last level change (240x320 -> 480x640): the source read
+    # once and the output written once; 2 FMAs + 2 products per pass.
+    st, dt, sp, dp, scale = upsample_geometries(h, w, p)[-1]
+    k4_in = _padded_flow(st, sp, device)
+    key = img_ops.resize_key(k4_in, st, dt, dp, scale)
+    taps = img_ops._padded_taps_on(key, k4_in.device)
+    k4 = lambda: img_ops.resize_bilinear_cf_padded(  # noqa: E731
+        k4_in, st, dt, dp, scale)
+    k4_ms, k4_wall = device_ms(k4, 100), wall_ms(k4, 100)
+    k4_plain = device_ms(
+        lambda: img_ops.resize_cf_padded_plain(k4_in, *taps), 10)
+    k4_lib = device_ms(lambda: img_ops.resize_cf_padded_dense(k4_in, key),
+                       100)
+    k4_bytes = 2 * 4 * (sp[0] * sp[1] + dp[0] * dp[1])
+    k4_ops = 2 * dp[0] * dp[1] * 9
+
+    # K3 on the timeline's 201 vertices, LKParams.particles(). Bytes: the
+    # four level images of every level, the points and the result. Ops
+    # from this run's iteration counts: per point and level 3 windows of
+    # 4 taps + 3 products per element, per iteration 4 taps + 2 products
+    # per element (2 flops each).
+    lkp = LKParams.particles()
+    prev, nxt = lk_inputs(device)
+    pts = timeline_init((10.0, 150.0), (630.0, 400.0), 200,
+                        device).vertices[None]
+    pyr_prev, pyr_next, derivs = lk.prepare(prev, nxt, lkp)
+    k3 = lambda: lk_track(pyr_prev, pyr_next, derivs, pts, lkp)  # noqa: E731
+    _, iters = k3()
+    k3_ms, k3_wall = device_ms(k3, 20), wall_ms(k3, 20)
+    k3_plain = device_ms(
+        lambda: lk_track_plain(pyr_prev, pyr_next, derivs, pts, lkp), 2)
+    area = lkp.win[0] * lkp.win[1]
+    k3_bytes = 4 * 4 * sum(lv.numel() for lv in pyr_prev) + pts.numel() * 12
+    k3_iters = int(iters.sum())
+    k3_ops = 2 * area * (pts.shape[1] * len(pyr_prev) * 15 + k3_iters * 6)
+    print(f"[5] lk_track iterations at 640x480, 201 vertices: "
+          f"{k3_iters} in all, {k3_iters / pts.shape[1]:.2f} per point over "
+          f"{len(pyr_prev)} levels (at most "
+          f"{lkp.max_iters * len(pyr_prev)})")
+
     def row(name, src, replaces, n, dev, ms, plain_ms, nbytes, ops, lib,
             wall):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -353,6 +649,14 @@ def kernel_rows(device, launches, devs):
             "ripcurrents_tpu/flow/fused_update.py:823", launches[1],
             devs["k2_max"], k2_ms, k2_plain, k2_bytes, k2_ops, lib_ms,
             k2_wall),
+        row("lk_track", "ripcurrents_tpu_torch/csrc/lk_track.cu",
+            "ripcurrents_tpu/flow/lk_pallas.py:322", launches[3],
+            devs["k3_px_max"], k3_ms, k3_plain, k3_bytes, k3_ops, None,
+            k3_wall),
+        row("resize_cf_padded", "ripcurrents_tpu_torch/csrc/"
+            "resize_cf_padded.cu", "ripcurrents_tpu/ops/resize_pallas.py:143",
+            launches[2], devs["k4_vs_plain"], k4_ms, k4_plain, k4_bytes,
+            k4_ops, k4_lib, k4_wall),
     ]
 
 
@@ -383,16 +687,31 @@ def main() -> int:
     devs_hd = check_kernels(1080, 1920, FarnebackParams.windowed(), dev,
                             iterations=1)
     print(f"[2] 1080p L0 windowed (bres 1, sw 640, gauss 10): {devs_hd}")
+    k4_devs = check_resize(480, 640, FarnebackParams.legacy(), dev)
+    devs.update(k4_devs)
+    print(f"[2] K4 at the legacy level changes (120x160 -> 240x320 -> "
+          f"480x640, padded): {k4_devs}")
+    print(f"[2] K4 at the 1080p windowed level changes: "
+          f"{check_resize(1080, 1920, FarnebackParams.windowed(), dev)}")
+    lk_devs = check_lk(dev, 201, timeline=True)
+    devs["k3_px_max"] = lk_devs["px_max"]
+    print(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
+    print(f"[2] K3 at 640x480, 1280 points: {check_lk(dev, 1280)}")
+    print(f"[2] K3 at 640x480, 2 streams x 201 points: "
+          f"{check_lk(dev, 201, streams=2)}")
+    print(f"[2] K3 at 640x480, 192 points, window 21x21: "
+          f"{check_lk(dev, 192, p=LKParams.red_points())}")
 
     host_ms, ev_ms, launches, share = run_legacy(dev)
-    per_frame = (launches[0] / FRAMES, launches[1] / FRAMES)
+    per_frame = tuple(n / FRAMES for n in launches)
     print(f"[3] legacy 640x480, {FRAMES} frames of {RAW_W}x{RAW_H}: "
           f"{host_ms:.3f} ms/frame (host clock), {ev_ms:.3f} ms/frame "
           f"(CUDA events), {1e3 / host_ms:.1f} fps; launches per frame "
-          f"K1 {per_frame[0]} K2 {per_frame[1]}; mask share {share:.4f}")
-    if per_frame != (6.0, 6.0):
-        raise AssertionError(f"expected 6 launches of K1 and K2 per frame, "
-                             f"got {per_frame}")
+          f"K1 {per_frame[0]} K2 {per_frame[1]} K4 {per_frame[2]}; mask "
+          f"share {share:.4f}")
+    if per_frame != (6.0, 6.0, 2.0):
+        raise AssertionError(f"expected 6 launches of K1 and K2 and 2 of K4 "
+                             f"per frame, got {per_frame}")
     small = compare_legacy_small(dev)
     print(f"[3] legacy 192x256 on the card vs on the CPU: {small}")
 
@@ -400,7 +719,28 @@ def main() -> int:
     print(f"[4] windowed stream 1920x1080: {hd_ms:.3f} ms/frame "
           f"({1e3 / hd_ms:.1f} fps), mean |flow| {hd_mag:.3f} px")
 
-    rows = kernel_rows(dev, launches, devs)
+    tl_ms, tl_ev, tl_launches, _, _ = run_mode(dev, "timelines", FRAMES)
+    print(f"[6] timelines 640x480, 201 vertices, {FRAMES} frames of "
+          f"{RAW_W}x{RAW_H}: {tl_ms:.3f} ms/frame (host clock), "
+          f"{tl_ev:.3f} ms/frame (CUDA events), {1e3 / tl_ms:.1f} fps; K3 "
+          f"launches per frame {tl_launches / FRAMES}")
+    if tl_launches != FRAMES:
+        raise AssertionError(f"expected one K3 launch per frame, got "
+                             f"{tl_launches} in {FRAMES} frames")
+    for mode, n in (("streaklines", 10), ("populationMap", 5),
+                    ("flowRedPoints", 5)):
+        m_ms, m_ev, m_launches, verts, _ = run_mode(dev, mode, n)
+        print(f"[6] {mode} 640x480, {verts.numel() // 2} vertices, {n} "
+              f"frames: {m_ms:.3f} ms/frame (host clock), {m_ev:.3f} "
+              f"ms/frame (CUDA events); K3 launches per frame "
+              f"{m_launches / n}")
+        if m_launches != n:
+            raise AssertionError(f"{mode}: expected one K3 launch per "
+                                 f"frame, got {m_launches} in {n}")
+    print(f"[6] timelines 192x256 on the card vs on the CPU: "
+          f"{compare_timelines_small(dev)}")
+
+    rows = kernel_rows(dev, launches + (tl_launches,), devs)
     for r in rows:
         lib = r["library_ms"]
         print(f"[5] {r['name']}: {r['ms'] * 1e3:.2f} us/launch on the "

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of the presets the legacy rip detector needs, with the same field
-names and values as the JAX package's ``config.py``, so that one preset
+A copy of the presets the legacy rip detector and the particle modes
+need, with the same field names and values as the JAX package's ``config.py``, so that one preset
 name means the same engine settings in both packages. The reference
 hard-codes these as #defines and per-call-site literals
 (RipCurrents_main/ripcurrents.hpp:4-13, ripcurrents.cpp:142-215).
@@ -85,6 +85,33 @@ class FarnebackParams:
         return FarnebackParams(0.5, 3, 5, 3, 15, 1.2, False,
                                warp_residual=4, warp_residual_hires=2,
                                warp_subcol=128, warp_subcol_hires=128)
+
+
+@dataclasses.dataclass(frozen=True)
+class LKParams:
+    """Pyramidal Lucas-Kanade sparse flow parameters (cv2.calcOpticalFlowPyrLK)."""
+
+    win: Tuple[int, int] = (50, 50)
+    levels: int = 3          # maxLevel; pyramid has levels+1 images
+    max_iters: int = 30
+    eps: float = 0.1         # TermCriteria epsilon (un-squared, as passed to cv2)
+    min_eig_threshold: float = 1e-4
+
+    @staticmethod
+    def particles() -> "LKParams":
+        # Streakline.cpp:32, ripcurrents_module.cpp:775,1162 —
+        # Size(50,50), 3 levels, 30 iters, eps 0.1, minEig 1e-4
+        return LKParams((50, 50), 3, 30, 0.1, 1e-4)
+
+    @staticmethod
+    def dense_grid() -> "LKParams":
+        # ripcurrents_module.cpp:716 — Size(21,21), 3, 30 iters, eps 0.01
+        return LKParams((21, 21), 3, 30, 0.01, 1e-4)
+
+    @staticmethod
+    def red_points() -> "LKParams":
+        # ripcurrents_module.cpp:738 — Size(21,21), 3, 30 iters, eps 0.1
+        return LKParams((21, 21), 3, 30, 0.1, 1e-4)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,13 +10,22 @@ their random generators do.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ripcurrents_tpu_torch.config import LKParams
 from ripcurrents_tpu_torch.dynamics.advect import FieldState
+from ripcurrents_tpu_torch.dynamics.particles import (PopulationState,
+                                                      TimelineState)
 from ripcurrents_tpu_torch.ops.hist import FlowHistogram
 from ripcurrents_tpu_torch.pipelines.common import FlowStream
 from ripcurrents_tpu_torch.pipelines.legacy import LegacyState
+from ripcurrents_tpu_torch.pipelines.modes import (PopulationMapState,
+                                                   RedPointsState,
+                                                   StreaklinesState,
+                                                   TimelinesState)
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -63,3 +72,49 @@ def legacy_state_to_numpy(state: LegacyState) -> dict:
                framecount=state.framecount)
     return {k: v if isinstance(v, np.ndarray) else v.cpu().numpy()
             for k, v in out.items()}
+
+
+def lk_params(p) -> LKParams:
+    """Any LK parameter dataclass with the port's field names (the JAX
+    package's ``LKParams``) -> the port's LKParams."""
+    return LKParams(**{f.name: getattr(p, f.name)
+                       for f in dataclasses.fields(LKParams)})
+
+
+def timelines_state_from_numpy(state, device="cpu") -> TimelinesState:
+    """A JAX ``timelines`` state mapped to numpy -> the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return TimelinesState(t(state.prev_gray),
+                          TimelineState(t(state.timeline.vertices)),
+                          t(state.framecount))
+
+
+def streaklines_state_from_numpy(state, device="cpu") -> StreaklinesState:
+    """A JAX ``streaklines`` state mapped to numpy -> the port's state."""
+    return StreaklinesState(*(tensor_from_numpy(a, device) for a in state))
+
+
+def population_state_from_numpy(state, device="cpu") -> PopulationMapState:
+    """A JAX ``populationMap`` state mapped to numpy -> the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return PopulationMapState(t(state.prev_gray),
+                              PopulationState(t(state.pop.vertices)),
+                              t(state.framecount))
+
+
+def red_points_state_from_numpy(state, device="cpu") -> RedPointsState:
+    """A JAX ``flowRedPoints`` state mapped to numpy -> the port's state."""
+    return RedPointsState(*(tensor_from_numpy(a, device) for a in state))
+
+
+def particle_state_to_numpy(state) -> dict:
+    """The state of any particle mode (nested NamedTuples of tensors) -> a
+    flat dict of numpy arrays keyed by field name, for comparison with the
+    JAX state."""
+    out = {}
+    for name, v in zip(state._fields, state):
+        if torch.is_tensor(v):
+            out[name] = v.cpu().numpy()
+        else:
+            out.update(particle_state_to_numpy(v))
+    return out

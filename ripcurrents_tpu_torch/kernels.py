@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # source stem -> (C entry point, argtypes)
 _ENTRIES = {
     "farneback_update": ("farneback_update_launch",
@@ -40,6 +41,11 @@ _ENTRIES = {
                           _P]),
     "farneback_blur_solve": ("farneback_blur_solve_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "lk_track": ("lk_track_launch",
+                 [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+                  _F, _F, _P]),
+    "resize_cf_padded": ("resize_cf_padded_launch",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 

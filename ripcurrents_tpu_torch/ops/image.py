@@ -1,8 +1,10 @@
 """Image preparation ops: resize and grayscale, with OpenCV-matching semantics.
 
-Port of ``ripcurrents_tpu/ops/image.py``. Resizes are two dense matmuls
-against the same host-built (src, dst) weight matrices as the reference,
-in float32 (the package switches TF32 off).
+Port of ``ripcurrents_tpu/ops/image.py``. Frame resizes are two dense
+matmuls against the same host-built (src, dst) weight matrices as the
+reference, in float32 (the package switches TF32 off). The padded flow
+upsample between Farneback levels is kernel K4 (``csrc/
+resize_cf_padded.cu``) with its plain version beside it.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ripcurrents_tpu_torch import kernels
 
 
 def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
@@ -141,17 +145,97 @@ def _padded_matrices_on(key, device: torch.device):
             torch.from_numpy(mx_p).to(device))
 
 
+def _two_taps(m: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The (at most two) nonzeros of each row of m as (idx (n, 2) int32
+    ascending, w (n, 2) float32); missing taps get weight 0."""
+    n = m.shape[0]
+    idx = np.zeros((n, 2), np.int32)
+    w = np.zeros((n, 2), np.float32)
+    for r in range(n):
+        nz = np.flatnonzero(m[r])
+        if len(nz) > 2:
+            raise ValueError(f"row {r} has {len(nz)} nonzeros")
+        idx[r, :len(nz)] = nz
+        idx[r, len(nz):] = nz[-1] if len(nz) else 0
+        w[r, :len(nz)] = m[r, nz]
+    return idx, w
+
+
+@functools.lru_cache(maxsize=64)
+def _padded_taps_on(key, device: torch.device):
+    """(yidx, yw, xidx, xw) of one geometry on `device`: the two source
+    rows and weights of every output row of MyT, and the two source
+    columns and weights of every output column of Mx. The scale fold and
+    the zero pads come with the matrices."""
+    my_p, mx_p = _resize_matrices_padded(*key)
+    taps = _two_taps(my_p.T) + _two_taps(mx_p.T)
+    return tuple(torch.from_numpy(t).to(device) for t in taps)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fmaf(a, b, c) on float32 tensors through float64: the product is
+    exact there and the sum is rounded once to 53 bits before the
+    rounding to float32, which differs from one rounding on about one
+    value in 2**29."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def resize_cf_padded_plain(img: torch.Tensor, yidx, yw, xidx,
+                           xw) -> torch.Tensor:
+    """Plain PyTorch version of K4: the two-tap y pass, then the two-tap x
+    pass, each sum as fmaf(w1, v1, w0 * v0) in ascending source index (the
+    rounding of a float32 matrix product that accumulates with FMAs;
+    the zero terms of the dense product change nothing)."""
+    y0, y1 = yidx[:, 0].long(), yidx[:, 1].long()
+    x0, x1 = xidx[:, 0].long(), xidx[:, 1].long()
+    t = _fma(yw[:, 1, None], img[:, y1, :], yw[:, 0, None] * img[:, y0, :])
+    return _fma(xw[:, 1], t[:, :, x1], xw[:, 0] * t[:, :, x0])
+
+
+def resize_cf_padded_dense(img: torch.Tensor, key) -> torch.Tensor:
+    """The dense two-matmul form out[c] = MyT @ img[c] @ Mx: the library
+    yardstick of K4 (chip_smoke.py times it; the port calls it nowhere)."""
+    myt, mx = _padded_matrices_on(key, img.device)
+    return torch.matmul(torch.matmul(myt, img), mx)
+
+
 def resize_bilinear_cf_padded(img: torch.Tensor, src_true: tuple[int, int],
                               dst_true: tuple[int, int],
                               dst_pad: tuple[int, int],
                               scale: float = 1.0) -> torch.Tensor:
-    """INTER_LINEAR resize of the true (sh, sw) region of a padded
-    channels-first (C, SPh, SPw) array into the true region of a
+    """K4: INTER_LINEAR resize of the true (sh, sw) region of a padded
+    channels-first (C, SPh, SPw) float32 array into the true region of a
     (C, DPh, DPw) canvas whose pads come out exactly zero, with a scalar
     fold (the 1/pyr_scale flow rescale). The embedding, the zeros and the
-    scale live in the two matrices: out[c] = MyT @ img[c] @ Mx. Source pad
-    values meet zero weights, so they must be finite."""
-    key = (tuple(src_true), tuple(dst_true),
-           (img.shape[1], img.shape[2]), tuple(dst_pad), float(scale))
-    myt, mx = _padded_matrices_on(key, img.device)
-    return torch.matmul(torch.matmul(myt, img.to(torch.float32)), mx)
+    scale live in the taps: out[c] = MyT @ img[c] @ Mx. Source pad values
+    meet zero weights, so they must be finite. On CUDA tensors one launch
+    of the kernel; on CPU tensors the plain version."""
+    if img.dtype != torch.float32 or img.dim() != 3 or \
+            not img.is_contiguous():
+        raise ValueError(f"img: expected contiguous float32 (C, SPh, SPw), "
+                         f"got {img.dtype} {tuple(img.shape)}")
+    c, sph, spw = img.shape
+    key = resize_key(img, src_true, dst_true, dst_pad, scale)
+    taps = _padded_taps_on(key, img.device)
+    if img.device.type == "cpu":
+        return resize_cf_padded_plain(img, *taps)
+    if img.device.type != "cuda":
+        raise ValueError(f"no kernel for device {img.device}")
+    out = torch.empty((c,) + tuple(dst_pad), dtype=torch.float32,
+                      device=img.device)
+    err = kernels.entry("resize_cf_padded")(
+        img.data_ptr(), *(t.data_ptr() for t in taps), out.data_ptr(), c,
+        sph, spw, dst_pad[0], dst_pad[1],
+        torch.cuda.current_stream(img.device).cuda_stream)
+    kernels.check(err, "resize_cf_padded")
+    resize_bilinear_cf_padded.launches += 1
+    return out
+
+
+resize_bilinear_cf_padded.launches = 0
+
+
+def resize_key(img: torch.Tensor, src_true, dst_true, dst_pad, scale):
+    """The geometry key of the cached matrices and taps."""
+    return (tuple(src_true), tuple(dst_true), (img.shape[1], img.shape[2]),
+            tuple(dst_pad), float(scale))

@@ -1,16 +1,16 @@
-"""Shared pipeline plumbing: configuration, frame prep, the flow stream
-(port of the legacy-path parts of ``ripcurrents_tpu/pipelines/
-common.py``)."""
+"""Shared pipeline plumbing: the mode registry, configuration, frame prep,
+the flow stream (port of the parts of ``ripcurrents_tpu/pipelines/
+common.py`` that the legacy path and the particle modes need)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 from ripcurrents_tpu_torch.config import (FarnebackParams, HistogramParams,
-                                          XDIM, YDIM)
+                                          LKParams, XDIM, YDIM)
 from ripcurrents_tpu_torch.flow.farneback import (farneback_precompute,
                                                   farneback_stream)
 from ripcurrents_tpu_torch.ops.image import (bgr_to_gray, resize_area,
@@ -19,13 +19,29 @@ from ripcurrents_tpu_torch.ops.image import (bgr_to_gray, resize_area,
 
 @dataclasses.dataclass(frozen=True)
 class ModeConfig:
-    """Static configuration of a mode (the legacy pipeline's fields)."""
+    """Static configuration threaded into every mode factory: the fields
+    of the legacy pipeline and of the particle modes, with the reference's
+    values as defaults."""
     xdim: int = XDIM
     ydim: int = YDIM
-    total_frames: int = 0        # CAP_PROP_FRAME_COUNT
-    seed: int = 0                # seed of the random streamline seeds
+    total_frames: int = 0        # CAP_PROP_FRAME_COUNT; 0 = filled by runner
+    seed: int = 0                # seed of the random seed points
     hist: HistogramParams = HistogramParams()
+    lk: LKParams = LKParams.particles()
+    timeline_start: Tuple[float, float] = (10.0, 150.0)
+    timeline_end: Tuple[float, float] = (XDIM - 10.0, 400.0)
+    timeline_vertices: int = 200
+    max_streaklines: int = 5
+    streakline_capacity: int = 256
+    population_rect: Tuple[float, float, float, float] = (250, 150, 300, 200)
+    population_vertices: int = 50
+    population_faithful_bias: bool = True
     legacy_seeds: int = 250
+
+
+def to_device(raw, device: torch.device) -> torch.Tensor:
+    """A raw frame (numpy array or tensor) as a tensor on `device`."""
+    return torch.as_tensor(raw).to(device)
 
 
 def prep_frame(raw_bgr_u8: torch.Tensor, cfg: ModeConfig,
@@ -52,3 +68,23 @@ def flow_stream_step(fs: FlowStream, gray: torch.Tensor,
     """-> (flow (H, W, 2) to the new frame, updated FlowStream)."""
     flow, exp = farneback_stream(fs.exp, gray, fb)
     return flow, FlowStream(exp)
+
+
+# registry: name -> factory(cfg, device="cuda") -> (init_fn, step_fn)
+# init_fn(first_raw_frame) -> state
+# step_fn(state, raw_frame) -> (state, out_frame_u8)
+MODES: Dict[str, Callable] = {}
+
+# Modes whose step reads only the grayscale frame (their output is a pure
+# flow visualization, never the color canvas). None of the ported modes is
+# one; the set keeps the registry's shape for the dense modes.
+GRAY_INPUT: set = set()
+
+
+def register(name: str, gray_input: bool = False):
+    def deco(fn):
+        MODES[name] = fn
+        if gray_input:
+            GRAY_INPUT.add(name)
+        return fn
+    return deco

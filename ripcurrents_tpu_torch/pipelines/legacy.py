@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ripcurrents_tpu_torch import resolve_device
@@ -31,7 +30,8 @@ from ripcurrents_tpu_torch.ops.polar import flow_to_polar
 from ripcurrents_tpu_torch.pipelines.common import (FlowStream, ModeConfig,
                                                     flow_stream_init,
                                                     flow_stream_step,
-                                                    prep_frame)
+                                                    prep_frame, register,
+                                                    to_device)
 from ripcurrents_tpu_torch.pipelines.modes import (_advect_and_draw_trails,
                                                    _composite_trails)
 from ripcurrents_tpu_torch.viz.color import histogram_wheel
@@ -72,12 +72,8 @@ def make_legacy(cfg: ModeConfig, device="cuda"):
     fb = FarnebackParams.legacy()
     thr = Thresholds(upper_init=100.0)   # ripcurrents.cpp:145
 
-    def to_dev(raw):
-        return torch.as_tensor(np.asarray(raw) if not torch.is_tensor(raw)
-                               else raw).to(dev)
-
     def init(first_raw) -> LegacyState:
-        _, gray = prep_frame(to_dev(first_raw), cfg, first=True)
+        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
         gen = torch.Generator().manual_seed(cfg.seed)
         seeds = torch.floor(
             torch.rand((cfg.legacy_seeds, 2), generator=gen) *
@@ -93,7 +89,7 @@ def make_legacy(cfg: ModeConfig, device="cuda"):
             torch.tensor(0, dtype=torch.int32, device=dev))
 
     def step(state: LegacyState, raw):
-        resized, gray = prep_frame(to_dev(raw), cfg)
+        resized, gray = prep_frame(to_device(raw, dev), cfg)
         fc = state.framecount + 1
         flow, fs = flow_stream_step(state.fstream, gray, fb)
 
@@ -165,3 +161,15 @@ def make_legacy(cfg: ModeConfig, device="cuda"):
                                         viz.outmask)
 
     return init, step
+
+
+@register("legacy")
+def legacy_mode(cfg: ModeConfig, device="cuda"):
+    """Registry wrapper returning just the red-edge overlay frame."""
+    init, step = make_legacy(cfg, device=device)
+
+    def step_overlay(state, raw):
+        state, outs = step(state, raw)
+        return state, outs.overlay_bgr
+
+    return init, step_overlay

@@ -1,12 +1,15 @@
-"""Where the time of the legacy step goes on the card.
+"""Where the time of a mode's step goes on the card.
 
-Drives ``make_legacy`` at 640x480 over synthetic 1280x720 frames (the
-chip_smoke.py main path), traces a window of warm frames with
-``torch.profiler`` and prints, per frame: host wall time, device kernel
-time, the device's busy share, launches, and the kernels that take the
-most device time. Run from the repository root on a machine with a card:
+Drives one registered mode (``legacy`` by default; ``--mode timelines``
+and the other particle modes likewise) at 640x480 over synthetic 1280x720
+frames (the chip_smoke.py main paths), traces a window of warm frames
+with ``torch.profiler`` and prints, per frame: host wall time, device
+kernel time, the device's busy share, launches, and the kernels that take
+the most device time. Run from the repository root on a machine with a
+card:
 
-    python -m ripcurrents_tpu_torch.trace_legacy [--frames 20] [--traced 10]
+    python -m ripcurrents_tpu_torch.trace_legacy [--mode legacy]
+        [--frames 20] [--traced 10]
 """
 
 from __future__ import annotations
@@ -19,13 +22,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ripcurrents_tpu_torch.flow import fused_update as fu
+from ripcurrents_tpu_torch.flow.lk_kernel import lk_track
+from ripcurrents_tpu_torch.ops.image import resize_bilinear_cf_padded
+from ripcurrents_tpu_torch.pipelines import runner
 from ripcurrents_tpu_torch.pipelines.common import ModeConfig
-from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
 from ripcurrents_tpu_torch.synthetic import moving_frames
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", default="legacy", choices=sorted(runner.MODES))
     ap.add_argument("--frames", type=int, default=20,
                     help="warm-up frames before the traced window")
     ap.add_argument("--traced", type=int, default=10)
@@ -36,7 +42,7 @@ def main() -> None:
     n = args.frames + args.traced
     cfg = ModeConfig(total_frames=n)
     raw = moving_frames(n + 1, 720, 1280, dev)
-    init, step = make_legacy(cfg, device=dev)
+    init, step = runner.MODES[args.mode](cfg, device=dev)
     state = init(raw[0])
     half = args.frames // 2
     for t in range(1, args.frames + 1):
@@ -64,14 +70,17 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(f"card: {torch.cuda.get_device_name(0)}")
     print(json.dumps({
+        "mode": args.mode,
         "frames_traced": args.traced,
         "wall_ms_per_frame_untraced": plain_ms,
         "wall_ms_per_frame_traced": wall_ms,
         "device_kernel_ms_per_frame": dev_ms,
         "device_busy_share_untraced": dev_ms / plain_ms,
         "device_launches_per_frame": len(kernels) / args.traced,
-        "k1_k2_launches": [fu.farneback_update.launches,
-                           fu.farneback_blur_solve.launches],
+        "k1_k2_k3_k4_launches": [fu.farneback_update.launches,
+                                 fu.farneback_blur_solve.launches,
+                                 lk_track.launches,
+                                 resize_bilinear_cf_padded.launches],
         "top_kernels_us_per_frame": [
             {"name": k[:80], "us": v[0] / args.traced,
              "launches": v[1] / args.traced} for k, v in top],

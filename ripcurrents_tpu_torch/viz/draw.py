@@ -1,5 +1,6 @@
-"""Rasterization of polylines onto device images (port of the legacy-path
-functions of ``ripcurrents_tpu/viz/draw.py``).
+"""Rasterization of polylines and filled circles onto device images (port
+of the functions of ``ripcurrents_tpu/viz/draw.py`` that the legacy path
+and the particle modes need).
 
 A segment is sampled at a fixed number of points, rounded to pixels and
 scattered with the thickness offsets; invalid or off-image points go to a
@@ -29,6 +30,14 @@ def _thickness_offsets(thickness: int) -> np.ndarray:
     n = int(np.ceil(r))
     offs = [(dy, dx) for dy in range(-n, n + 1) for dx in range(-n, n + 1)
             if dy * dy + dx * dx <= max(r * r, 0.25)]
+    return np.array(offs, np.int32)
+
+
+@functools.lru_cache(maxsize=32)
+def _disc_offsets(radius: int) -> np.ndarray:
+    offs = [(dy, dx) for dy in range(-radius, radius + 1)
+            for dx in range(-radius, radius + 1)
+            if dy * dy + dx * dx <= radius * radius]
     return np.array(offs, np.int32)
 
 
@@ -80,3 +89,24 @@ def draw_polyline(img: torch.Tensor, pts: torch.Tensor, color,
         valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
     return draw_segments(img, pts[:-1], pts[1:], valid[:-1] & valid[1:],
                          color, thickness)
+
+
+def draw_circles(img: torch.Tensor, centers: torch.Tensor, radius: int,
+                 color, valid: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Filled circles at centers (N, 2) (x, y), rounded half to even."""
+    if valid is None:
+        valid = torch.ones(centers.shape[0], dtype=torch.bool,
+                           device=centers.device)
+    c = torch.round(centers).long()
+    offs = torch.from_numpy(_disc_offsets(radius)).to(centers.device).long()
+    ys = c[:, 1, None] + offs[None, :, 0]
+    xs = c[:, 0, None] + offs[None, :, 1]
+    return _scatter_points(img, ys, xs, valid[:, None].expand(ys.shape),
+                           color)
+
+
+def blend(a_u8: torch.Tensor, b_u8: torch.Tensor, alpha: float,
+          beta: float) -> torch.Tensor:
+    """cv::addWeighted(a, alpha, b, beta, 0)."""
+    out = a_u8.to(torch.float32) * alpha + b_u8.to(torch.float32) * beta
+    return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)

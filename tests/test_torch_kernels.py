@@ -1,4 +1,4 @@
-"""The Hopper kernels K1 and K2 and the level loop against their plain
+"""The Hopper kernels K1-K4 and the level loop against their plain
 PyTorch versions, on the card. These are the checks chip_smoke.py runs
 (its check functions, its tolerances). Without a card every test skips:
 a CUDA kernel has no CPU interpret mode, and the CPU tests hold the plain
@@ -10,7 +10,7 @@ import pathlib
 import pytest
 import torch
 
-from ripcurrents_tpu_torch.config import FarnebackParams
+from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
 
 torch.set_num_threads(1)
 
@@ -52,4 +52,32 @@ def test_legacy_step_on_card_matches_cpu(card):
 def test_legacy_main_path_launches_both_kernels(card):
     _, _, launches, _ = _chip_smoke().run_legacy(
         card, frames=40, xdim=320, ydim=240, raw_hw=(360, 640))
-    assert launches == (6 * 40, 6 * 40)
+    assert launches == (6 * 40, 6 * 40, 2 * 40)
+
+
+@pytest.mark.parametrize("hw,preset", [((480, 640), "legacy"),
+                                       ((1080, 1920), "windowed"),
+                                       ((75, 107), "legacy")])
+def test_resize_kernel_matches_plain_and_dense(card, hw, preset):
+    cs = _chip_smoke()
+    devs = cs.check_resize(*hw, getattr(FarnebackParams, preset)(), card)
+    assert devs["k4_vs_plain"] <= cs.K4_TOL
+
+
+@pytest.mark.parametrize("n,streams,preset", [(201, 1, "particles"),
+                                              (1280, 1, "particles"),
+                                              (201, 2, "particles"),
+                                              (192, 1, "red_points")])
+def test_lk_kernel_matches_plain_version(card, n, streams, preset):
+    cs = _chip_smoke()
+    res = cs.check_lk(card, n, streams=streams,
+                      p=getattr(LKParams, preset)())
+    assert res["share_within"] >= cs.LK_SHARE
+
+
+def test_timelines_on_card_matches_cpu_and_launches_the_kernel(card):
+    cs = _chip_smoke()
+    out = cs.compare_timelines_small(card)
+    assert out["vertex_max_px"] <= cs.MODE_VERTEX_PX
+    _, _, launches, _, _ = cs.run_mode(card, "timelines", 6)
+    assert launches == 6
