@@ -9,7 +9,7 @@ CUDA toolkit:
 
 Every phase passes or raises (the script catches nothing):
 
-1. the card's name and power limit; build the four kernels of ``csrc/``
+1. the card's name and power limit; build the seven kernels of ``csrc/``
    with nvcc for sm_90a and print the build time and the ptxas report;
 2. K1 (farneback_update), K2 (farneback_blur_solve) and the level loop
    against their plain versions on the card, at the main path's shapes:
@@ -19,12 +19,16 @@ Every phase passes or raises (the script catches nothing):
    against its plain version and the dense two-matmul form at every level
    change of both; K3 (lk_track) against its plain version at 640x480
    with 201 points, 1280 points and 2 streams x 201 points, border and
-   out-of-image points included;
+   out-of-image points included; K5 (prep_y) and K6 (prep_x3) against
+   their plain versions and the dense matmul form at every level of the
+   640x480 legacy and 1080p windowed tables and of the 640x480
+   channels-last tables of the portable engine; K7 (warp5_shift) against
+   its plain version at 640x480 with flows inside and beyond +-16 px;
 3. the legacy rip detector (``make_legacy``, 250 seeds) on 40 synthetic
    1280x720 moving-texture frames at 640x480: finite outputs of the right
-   shapes, a live duty mask, K1 and K2 each launched 6 times and K4 twice
-   per frame; then the whole step at 192x256 on the card against the same
-   step on the CPU (plain versions);
+   shapes, a live duty mask, K1 and K2 each launched 6 times, K4 twice and
+   K5 and K6 3 times per frame; then the whole step at 192x256 on the card
+   against the same step on the CPU (plain versions);
 4. the windowed Farneback stream at 1920x1080;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
    version, its bound and a library call, as one JSON line;
@@ -32,7 +36,14 @@ Every phase passes or raises (the script catches nothing):
    frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
    ``streaklines`` (1280 vertices), ``populationMap`` and
    ``flowRedPoints``; then ``timelines`` at 192x256 on the card against
-   the same steps on the CPU.
+   the same steps on the CPU;
+7. the dense Farneback modes through ``run_frames`` at 640x480 from
+   1280x720 frames: ``subtructAverageVectorWithWindow`` for 40 frames, the
+   other six for a few frames each (``averageVector`` with its 300-frame
+   ring), then ``subtructAverageVector`` on the portable engine
+   (``warp_impl="pallas"``: K7 9 times per frame); then
+   ``subtructAverageVectorWithWindow`` at 192x256 on the card against the
+   same steps on the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -41,6 +52,7 @@ that. Without a card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,12 +68,15 @@ from ripcurrents_tpu_torch.dynamics.particles import timeline_init
 from ripcurrents_tpu_torch.flow import farneback as fb
 from ripcurrents_tpu_torch.flow import fused_update as fu
 from ripcurrents_tpu_torch.flow import lucas_kanade as lk
+from ripcurrents_tpu_torch.flow import prep_kernel, warp_kernel
 from ripcurrents_tpu_torch.flow.lk_kernel import lk_track, lk_track_plain
 from ripcurrents_tpu_torch.ops import image as img_ops
 from ripcurrents_tpu_torch.pipelines import modes, runner
 from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
 from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
 from ripcurrents_tpu_torch.synthetic import moving_frames
+from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
+                                                reset_launches)
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 (non-tensor-core) flop/s.
@@ -94,11 +109,32 @@ LK_PX = 1e-3
 LK_MEDIAN = 1e-4
 LK_SHARE = 0.99
 LK_ERR_RTOL = 1e-4         # plus 1e-7 absolute
+# K5, K6 and K7 round each product and sum alike with their plain
+# versions (nvcc -fmad=false; one float32 accumulator per output in the
+# plain version's order) and must agree bit for bit. The dense matmul form
+# of the prep sums the same products among zeros in cuBLAS's order: its
+# one-ULP bf16 flips are reported, not bounded.
+PREP_TOL = 0.0
+WARP_TOL = 0.0
+# K7 against the exact bilinear gather on the pixels the mask keeps:
+# |d| <= WARP_GATHER_REL * the channel's largest |r1| (the shift sum and
+# the gather round their products and sums differently; the CPU tests hold
+# K7's plain version to the gather within the same bound).
+WARP_GATHER_REL = 5e-5
 # A particle mode on the card vs on the CPU over 3 frames: the frame
 # resize's matmul rounding can move a uint8 pixel by one level, which the
 # tracker turns into a small shift of a vertex.
 MODE_VERTEX_PX = 0.05
 MODE_PIXEL_SHARE = 0.999
+# A dense mode on the card vs on the CPU over 3 frames: the flow's ring
+# mean differs by float32 rounding of K1/K2 against their plain versions
+# and of the frame resize's matmul; a colour mode truncates the flow's
+# angle and magnitude to uint8, so such a difference can move a pixel's
+# colour by a level. Limits ~30x the readings on an H100 (median 3.0e-8
+# px, p99 3.4e-7 px, 99.1% of pixels equal).
+DENSE_MEDIAN_PX = 1e-6
+DENSE_P99_PX = 1e-5
+DENSE_PIXEL_SHARE = 0.98
 
 RAW_H, RAW_W = 720, 1280
 FRAMES = 40
@@ -298,6 +334,103 @@ def check_lk(device, n, streams=1, p: LKParams = LKParams.particles(),
     return res
 
 
+def prep_call(img, args, channels_first=True):
+    """(K5 call, K6 call, plain K5, plain K6, dense form, t) of one level
+    geometry (``farneback._prep_level_args``) on img's device; each call
+    returns that step's output."""
+    win = fb._prep_windows_on(args, img.device)
+    ph, pw = args[8], args[9]
+    ig = fb._poly_exp_consts(args[4], args[5])[3:]
+    odt = torch.bfloat16 if channels_first else torch.float32
+    t = prep_kernel.prep_y(img, win)
+    return (lambda: prep_kernel.prep_y(img, win),
+            lambda: prep_kernel.prep_x3(t, win, ph, ig, odt, channels_first),
+            lambda: prep_kernel.prep_y_plain(img, win["y_lo"], win["wy"]),
+            lambda: prep_kernel.prep_x3_plain(t, win["x_lo"], win["wx"], ph,
+                                              ig, odt, channels_first),
+            lambda: fb.poly_exp_level_dense(img, *args[2:8], (ph, pw),
+                                            args[10], odt),
+            t)
+
+
+def check_prep(h, w, p: FarnebackParams, device):
+    """K5 and K6 against their plain versions, and the whole level against
+    the dense matmul form, at every level of preset p at (h, w), in the
+    table layout of p's engine: the fused engine's halo'd (5, Ph, Pw) bf16,
+    the portable engine's (lh, lw, 5) float32. Returns the largest
+    deviations; raises past PREP_TOL or on a nonzero pad."""
+    img = moving_frames(1, h, w, device, color=False)[0].to(torch.float32)
+    channels_first = p.warp_impl == "fused"
+    worst = {"k5_vs_plain": 0.0, "k6_vs_plain": 0.0, "dense_max": 0.0,
+             "dense_mean": 0.0, "dense_share": 0.0}
+    for k in range(p.levels, -1, -1):
+        args = fb._prep_level_args(h, w, p, k)
+        k5, k6, k5_plain, k6_plain, dense, t = prep_call(img, args,
+                                                         channels_first)
+        out = k6()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # a fault in a kernel shows here
+        d5 = (t.float() - k5_plain().float()).abs().max().item()
+        d6 = (out.float() - k6_plain().float()).abs().max().item()
+        cf = out if channels_first else out.permute(2, 0, 1)
+        dd = (cf.float() - dense().float()).abs()
+        lh, lw, (oy, ox) = args[2], args[3], args[10]
+        inner = torch.zeros(cf.shape[1:], dtype=torch.bool, device=device)
+        inner[oy:oy + lh, ox:ox + lw] = True
+        pads = cf.float().masked_fill(inner, 0.0).abs().max().item()
+        if d5 > PREP_TOL or d6 > PREP_TOL or pads != 0.0:
+            raise AssertionError(f"K5/K6 disagree at level {lh}x{lw} of "
+                                 f"{h}x{w}: K5 {d5}, K6 {d6}, pads {pads}")
+        worst["k5_vs_plain"] = max(worst["k5_vs_plain"], d5)
+        worst["k6_vs_plain"] = max(worst["k6_vs_plain"], d6)
+        worst["dense_max"] = max(worst["dense_max"], dd.max().item())
+        worst["dense_mean"] = max(worst["dense_mean"], dd.mean().item())
+        worst["dense_share"] = max(worst["dense_share"],
+                                   (dd > 0).float().mean().item())
+    return worst
+
+
+def warp_inputs(h, w, device, flow_px, seed=0):
+    """K7's inputs at (h, w): the level-0 channels-last table of a
+    moving-texture frame (the portable engine's r1) and a smooth random
+    flow of up to +-flow_px, with integer displacements sprinkled in."""
+    p = dataclasses.replace(FarnebackParams.subtract_average(),
+                            warp_impl="pallas")
+    f = moving_frames(1, h, w, device, seed=seed, color=False)[0]
+    r1 = fb.farneback_precompute(f, p)[-1]
+    g = torch.Generator().manual_seed(seed + 1)
+    coarse = (torch.rand((1, 2, h // 32 + 2, w // 32 + 2), generator=g)
+              * 2 - 1) * flow_px
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0)
+    flow[::7, ::5] = torch.round(flow[::7, ::5])
+    return r1, flow.contiguous().to(device)
+
+
+def check_warp(h, w, device, budget=16, flow_px=24.0):
+    """K7 against its plain version (everywhere) and the exact gather (on
+    the pixels the mask keeps) at (h, w). Returns the deviations; raises
+    past WARP_TOL or WARP_GATHER_REL."""
+    r1, flow = warp_inputs(h, w, device, flow_px)
+    got = warp_kernel.warp5_shift(r1, flow, budget)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    plain = warp_kernel.warp5_shift_plain(r1, flow, budget)
+    _, inside = fb._warp5_shift_mask(h, w, flow, budget)
+    gather, _ = fb._warp5_gather(r1, flow)
+    d = (got - plain).abs()
+    scale = r1.abs().amax(dim=(0, 1))
+    dg = ((got - gather).abs() / scale)[inside]
+    res = {"max_inside": d[inside].max().item(), "max_all": d.max().item(),
+           "inside_share": inside.float().mean().item(),
+           "vs_gather_rel": dg.max().item(),
+           "vs_gather_mean_rel": dg.mean().item()}
+    if res["max_all"] > WARP_TOL or res["vs_gather_rel"] > WARP_GATHER_REL \
+            or not 0.2 < res["inside_share"] < 0.95:
+        raise AssertionError(f"K7 disagrees at {h}x{w}: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the legacy step
 # ---------------------------------------------------------------------------
@@ -331,8 +464,8 @@ def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
                raw_hw=(RAW_H, RAW_W), dense_upsample=False):
     """The legacy path: make_legacy at xdim x ydim (default 640x480, 250
     seeds) over `frames` synthetic raw frames. Returns (ms per warm frame
-    by host clock, ms by CUDA events or None, launches of K1, K2 and K4,
-    mask share). dense_upsample=True swaps K4 for the dense two-matmul
+    by host clock, ms by CUDA events or None, launches of K1, K2, K4, K5
+    and K6, mask share). dense_upsample=True swaps K4 for the dense two-matmul
     form for this run, to time the step with and without the kernel in
     one process."""
     fb.resize_bilinear_cf_padded = _dense_upsample if dense_upsample \
@@ -341,9 +474,7 @@ def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
     raw = moving_frames(frames + 1, *raw_hw, device)
     init, step = make_legacy(cfg, device=device)
     state = init(raw[0])
-    fu.farneback_update.launches = 0
-    fu.farneback_blur_solve.launches = 0
-    img_ops.resize_bilinear_cf_padded.launches = 0
+    reset_launches()
     warm = 5
     cuda = device.type == "cuda"
     for t in range(1, frames + 1):
@@ -360,9 +491,8 @@ def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
         torch.cuda.synchronize(device)
     host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
     ev_ms = ev0.elapsed_time(ev1) / (frames - warm) if cuda else None
-    launches = (fu.farneback_update.launches,
-                fu.farneback_blur_solve.launches,
-                img_ops.resize_bilinear_cf_padded.launches)
+    launches = tuple(n for name, n in launch_counts().items()
+                     if name not in ("K3", "K7"))
     check_legacy_outputs(outs, cfg)
     for f in ("disp", "dist"):
         if not bool(torch.isfinite(getattr(state.field, f)).all()):
@@ -445,7 +575,7 @@ def run_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
     raw = moving_frames(frames + 1, *raw_hw, device)
     init_state = MODES[mode](cfg, device=device)[0](raw[0])
     start = _VERTICES[mode](init_state).clone()
-    lk_track.launches = 0
+    reset_launches()
     stats = runner.RunStats()
     cuda = device.type == "cuda"
     out = None
@@ -513,6 +643,94 @@ def compare_timelines_small(device, n=3):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the dense Farneback modes through run_frames
+# ---------------------------------------------------------------------------
+
+def _float_leaves(state) -> dict:
+    """{field: tensor} of a mode state's float leaves (tables left out)."""
+    out = {}
+    for name, v in zip(state._fields, state):
+        if name == "fstream":
+            continue
+        if hasattr(v, "_fields"):
+            out.update(_float_leaves(v))
+        elif v.is_floating_point():
+            out[name] = v
+    return out
+
+
+def run_dense_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
+                   raw_hw=(RAW_H, RAW_W), warm=2):
+    """One dense Farneback mode through run_frames over `frames` synthetic
+    raw frames, every launch counter set to 0 just before. Returns (ms per
+    warm frame by host clock, ms by CUDA events or None, launches {kernel:
+    n}, last output frame); raises on a bad output or a state that did not
+    move."""
+    raw = moving_frames(frames + 1, *raw_hw, device)
+    stats = runner.RunStats()
+    cuda = device.type == "cuda"
+    reset_launches()
+    outs = []
+    for t, out in enumerate(runner.run_frames(mode, raw, cfg, device=device,
+                                              stats=stats), 1):
+        outs.append(out)
+        if t == warm:
+            if cuda:
+                torch.cuda.synchronize(device)
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            t0 = time.perf_counter()
+    if cuda:
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        torch.cuda.synchronize(device)
+    launches = launch_counts()
+    host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
+    ev_ms = ev0.elapsed_time(ev1) / (frames - warm) if cuda else None
+    if stats.frames != frames or int(stats.state.framecount) != frames:
+        raise AssertionError(f"{mode}: {stats.frames} frames stepped")
+    out = outs[-1]
+    if tuple(out.shape) != (cfg.ydim, cfg.xdim, 3) or \
+            out.dtype != torch.uint8:
+        raise AssertionError(f"{mode}: output {out.dtype} "
+                             f"{tuple(out.shape)}")
+    leaves = _float_leaves(stats.state)
+    bad = [k for k, v in leaves.items() if not bool(torch.isfinite(v).all())]
+    if bad:
+        raise AssertionError(f"{mode}: non-finite state {bad}")
+    if bool((outs[-1] == outs[-2]).all()) or \
+            int(out.reshape(-1, 3).unique(dim=0).shape[0]) < 8:
+        raise AssertionError(f"{mode}: the output does not move")
+    return host_ms, ev_ms, launches, out
+
+
+def compare_dense_small(device, mode="subtructAverageVectorWithWindow",
+                        n=3):
+    """A dense mode at 192x256 on `device` against the same steps on the
+    CPU (plain versions), from the same frames: the ring mean of the flow
+    and the output frames, held to the DENSE_* limits."""
+    cfg = ModeConfig(xdim=256, ydim=192, window_size=3)
+    raw = moving_frames(n + 1, 288, 384, torch.device("cpu"))
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        stats = runner.RunStats()
+        outs = list(runner.run_frames(mode, raw, cfg, device=dev,
+                                      stats=stats))
+        res[dev.type] = (stats.state.ring.mean.cpu(), outs[-1].cpu())
+    (mg, og), (mc, oc) = res[device.type], res["cpu"]
+    d = (mg - mc).norm(dim=-1).flatten()
+    out = {"ring_mean_median_px": d.median().item(),
+           "ring_mean_p99_px": torch.quantile(d, 0.99).item(),
+           "ring_mean_max_px": d.max().item(),
+           "pixels_equal": (og == oc).all(dim=-1).float().mean().item()}
+    if out["ring_mean_median_px"] > DENSE_MEDIAN_PX or \
+            out["ring_mean_p99_px"] > DENSE_P99_PX or \
+            out["pixels_equal"] < DENSE_PIXEL_SHARE:
+        raise AssertionError(f"{mode} on {device} vs CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -549,9 +767,10 @@ def device_ms(fn, reps):
 
 
 def kernel_rows(device, launches, devs):
-    """Timing rows at the 640x480 shapes: K1, K2 and K4 at level 0 of the
-    legacy preset, K3 on the 201 timeline vertices. launches: (K1, K2, K4,
-    K3) counts of the main paths; devs: the deviations of phase 2."""
+    """Timing rows at the 640x480 shapes: K1, K2, K4, K5 and K6 at level 0
+    of the legacy preset, K3 on the 201 timeline vertices, K7 at level 0 of
+    the subtract_average preset. launches: {kernel: count} of the main
+    paths; devs: the deviations of phase 2."""
     p = FarnebackParams.legacy()
     h, w = 480, 640
     bres = _bres(p, h, w)
@@ -628,6 +847,55 @@ def kernel_rows(device, launches, devs):
           f"{len(pyr_prev)} levels (at most "
           f"{lkp.max_iters * len(pyr_prev)})")
 
+    # K5 and K6 at level 0 of the legacy 640x480 table (5, 544, 896) bf16.
+    # Bytes: the frame (f32) and t (bf16) once each, the window weights;
+    # the output (bf16) once. Ops: 2 per product over this geometry's
+    # windows (K6: six sums) and 7 per pixel for the combine.
+    img = moving_frames(1, h, w, device, color=False)[0].to(torch.float32)
+    args = fb._prep_level_args(h, w, p, 0)
+    k5, k6, k5_plain, k6_plain, _, t = prep_call(img, args)
+    win = fb._prep_windows_on(args, device)
+    ph, pw = args[8], args[9]
+    k5_ms, k5_wall = device_ms(k5, 100), wall_ms(k5, 100)
+    k5_plain_ms = device_ms(k5_plain, 5)
+    k6_ms, k6_wall = device_ms(k6, 100), wall_ms(k6, 100)
+    k6_plain_ms = device_ms(k6_plain, 5)
+    k5_bytes = img.numel() * 4 + t.numel() * 2 + win["wy"].numel() * 4
+    k5_ops = 2 * int(win["y_len"].sum()) * w
+    k6_bytes = t.numel() * 2 + 5 * ph * pw * 2 + win["wx"].numel() * 4
+    k6_ops = 6 * 2 * int(win["x_len"].sum()) * ph + 7 * ph * pw
+    # yardsticks: each pass as one dense float32 torch.matmul of the
+    # bf16-rounded operands (the K6 one without the combine)
+    by3t, bx_g, bx_xg, bx_xxg = fb._prep_matrices_on(args, device,
+                                                     torch.bfloat16)
+    img16 = img.to(torch.bfloat16).to(torch.float32)
+    k5_lib = device_ms(lambda: torch.matmul(by3t, img16), 100)
+    bx3 = torch.cat([bx_g, bx_xg, bx_xxg], dim=1)
+    tf = t.to(torch.float32)
+    k6_lib = device_ms(lambda: torch.matmul(tf, bx3), 100)
+
+    # K7 at level 0 of subtract_average on the portable engine, budget 16,
+    # flows within +-12 px. Bytes: r1, the flow and the output once each;
+    # ops: 4 taps x 5 channels x 2, the row and column sums and the hat
+    # weights, ~76 per pixel.
+    r1, wflow = warp_inputs(h, w, device, 12.0)
+    k7 = lambda: warp_kernel.warp5_shift(r1, wflow, 16)  # noqa: E731
+    k7_ms, k7_wall = device_ms(k7, 100), wall_ms(k7, 100)
+    k7_plain = device_ms(
+        lambda: warp_kernel.warp5_shift_plain(r1, wflow, 16), 5)
+    k7_bytes = h * w * (5 * 4 + 2 * 4 + 5 * 4)
+    k7_ops = h * w * 76
+    # yardstick: grid_sample of the channels-first table at x + flow
+    # (align_corners=True maps pixel centres to -1..1 exactly)
+    r1cf = r1.permute(2, 0, 1)[None].contiguous()
+    ys, xs = fb._grid(h, w, device)
+    grid = torch.stack([(xs + wflow[..., 0]) * (2.0 / (w - 1)) - 1,
+                        (ys + wflow[..., 1]) * (2.0 / (h - 1)) - 1],
+                       dim=-1)[None]
+    k7_lib = device_ms(lambda: F.grid_sample(
+        r1cf, grid, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 100)
+
     def row(name, src, replaces, n, dev, ms, plain_ms, nbytes, ops, lib,
             wall):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -642,21 +910,33 @@ def kernel_rows(device, launches, devs):
     return [
         row("farneback_update", "ripcurrents_tpu_torch/csrc/"
             "farneback_update.cu", "ripcurrents_tpu/flow/fused_update.py:682",
-            launches[0], devs["k1_max"], k1_ms, k1_plain, k1_bytes, k1_ops,
-            None, k1_wall),
+            launches["K1"], devs["k1_max"], k1_ms, k1_plain, k1_bytes,
+            k1_ops, None, k1_wall),
         row("farneback_blur_solve", "ripcurrents_tpu_torch/csrc/"
             "farneback_blur_solve.cu",
-            "ripcurrents_tpu/flow/fused_update.py:823", launches[1],
+            "ripcurrents_tpu/flow/fused_update.py:823", launches["K2"],
             devs["k2_max"], k2_ms, k2_plain, k2_bytes, k2_ops, lib_ms,
             k2_wall),
         row("lk_track", "ripcurrents_tpu_torch/csrc/lk_track.cu",
-            "ripcurrents_tpu/flow/lk_pallas.py:322", launches[3],
+            "ripcurrents_tpu/flow/lk_pallas.py:322", launches["K3"],
             devs["k3_px_max"], k3_ms, k3_plain, k3_bytes, k3_ops, None,
             k3_wall),
         row("resize_cf_padded", "ripcurrents_tpu_torch/csrc/"
             "resize_cf_padded.cu", "ripcurrents_tpu/ops/resize_pallas.py:143",
-            launches[2], devs["k4_vs_plain"], k4_ms, k4_plain, k4_bytes,
+            launches["K4"], devs["k4_vs_plain"], k4_ms, k4_plain, k4_bytes,
             k4_ops, k4_lib, k4_wall),
+        row("prep_y", "ripcurrents_tpu_torch/csrc/prep_y.cu",
+            "ripcurrents_tpu/flow/prep_pallas.py:128", launches["K5"],
+            devs["k5_vs_plain"], k5_ms, k5_plain_ms, k5_bytes, k5_ops,
+            k5_lib, k5_wall),
+        row("prep_x3", "ripcurrents_tpu_torch/csrc/prep_x3.cu",
+            "ripcurrents_tpu/flow/prep_pallas.py:182", launches["K6"],
+            devs["k6_vs_plain"], k6_ms, k6_plain_ms, k6_bytes, k6_ops,
+            k6_lib, k6_wall),
+        row("warp5_shift", "ripcurrents_tpu_torch/csrc/warp5_shift.cu",
+            "ripcurrents_tpu/flow/warp_pallas.py:89", launches["K7"],
+            devs["k7_max"], k7_ms, k7_plain, k7_bytes, k7_ops, k7_lib,
+            k7_wall),
     ]
 
 
@@ -693,6 +973,24 @@ def main() -> int:
           f"480x640, padded): {k4_devs}")
     print(f"[2] K4 at the 1080p windowed level changes: "
           f"{check_resize(1080, 1920, FarnebackParams.windowed(), dev)}")
+    for name, (hw, preset) in {
+            "640x480 legacy (5, Ph, Pw) bf16": ((480, 640),
+                                                FarnebackParams.legacy()),
+            "1080p windowed (5, Ph, Pw) bf16": ((1080, 1920),
+                                                FarnebackParams.windowed()),
+            "640x480 subtract_average (lh, lw, 5) f32": (
+                (480, 640), dataclasses.replace(
+                    FarnebackParams.subtract_average(), warp_impl="pallas"))
+    }.items():
+        prep_devs = check_prep(*hw, preset, dev)
+        if name.startswith("640x480 legacy"):
+            devs.update(prep_devs)
+        print(f"[2] K5/K6 at every level of the {name} tables: {prep_devs}")
+    k7_devs = check_warp(480, 640, dev)
+    devs["k7_max"] = k7_devs["max_all"]
+    print(f"[2] K7 at 640x480, budget 16, flows up to +-24 px: {k7_devs}")
+    print(f"[2] K7 at 75x107, budget 4, flows up to +-7 px: "
+          f"{check_warp(75, 107, dev, budget=4, flow_px=7.0)}")
     lk_devs = check_lk(dev, 201, timeline=True)
     devs["k3_px_max"] = lk_devs["px_max"]
     print(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
@@ -707,11 +1005,11 @@ def main() -> int:
     print(f"[3] legacy 640x480, {FRAMES} frames of {RAW_W}x{RAW_H}: "
           f"{host_ms:.3f} ms/frame (host clock), {ev_ms:.3f} ms/frame "
           f"(CUDA events), {1e3 / host_ms:.1f} fps; launches per frame "
-          f"K1 {per_frame[0]} K2 {per_frame[1]} K4 {per_frame[2]}; mask "
-          f"share {share:.4f}")
-    if per_frame != (6.0, 6.0, 2.0):
-        raise AssertionError(f"expected 6 launches of K1 and K2 and 2 of K4 "
-                             f"per frame, got {per_frame}")
+          f"K1 {per_frame[0]} K2 {per_frame[1]} K4 {per_frame[2]} K5 "
+          f"{per_frame[3]} K6 {per_frame[4]}; mask share {share:.4f}")
+    if per_frame != (6.0, 6.0, 2.0, 3.0, 3.0):
+        raise AssertionError(f"expected 6 launches of K1 and K2, 2 of K4 and "
+                             f"3 of K5 and K6 per frame, got {per_frame}")
     small = compare_legacy_small(dev)
     print(f"[3] legacy 192x256 on the card vs on the CPU: {small}")
 
@@ -740,7 +1038,43 @@ def main() -> int:
     print(f"[6] timelines 192x256 on the card vs on the CPU: "
           f"{compare_timelines_small(dev)}")
 
-    rows = kernel_rows(dev, launches + (tl_launches,), devs)
+    dense = {}
+    for mode, n in (("subtructAverageVectorWithWindow", FRAMES),
+                    ("streamlines", 5), ("timelinesOnSubtractAverageVector", 5),
+                    ("timelinesFarne", 5), ("subtructAverageVector", 5),
+                    ("shearRate", 5), ("averageVector", 5)):
+        dense[mode] = run_dense_mode(dev, mode, n)
+        m_ms, m_ev, m_n, _ = dense[mode]
+        iters = getattr(FarnebackParams, "windowed" if mode in (
+            "subtructAverageVectorWithWindow", "shearRate") else
+            "streamlines" if mode in ("streamlines",
+                                      "timelinesOnSubtractAverageVector")
+            else "subtract_average")().iterations
+        want = {"K1": 3 * iters * n, "K2": 3 * iters * n, "K3": 0,
+                "K4": 2 * n, "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 0}
+        print(f"[7] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}: "
+              f"{m_ms:.3f} ms/frame (host clock), {m_ev:.3f} ms/frame (CUDA "
+              f"events), {1e3 / m_ms:.1f} fps; launches {m_n}")
+        if m_n != want:
+            raise AssertionError(f"{mode}: expected launches {want}")
+    pallas_cfg = ModeConfig(warp_impl="pallas")
+    n = 10
+    p_ms, p_ev, p_n, _ = run_dense_mode(dev, "subtructAverageVector", n,
+                                        pallas_cfg)
+    print(f"[7] subtructAverageVector 640x480 on the portable engine "
+          f"(warp_impl='pallas'), {n} frames: {p_ms:.3f} ms/frame (host "
+          f"clock), {p_ev:.3f} ms/frame (CUDA events); launches {p_n}, K7 "
+          f"{p_n['K7'] / n} per frame")
+    want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 3 * (n + 1),
+            "K6": 3 * (n + 1), "K7": 9 * n}
+    if p_n != want:
+        raise AssertionError(f"portable engine: expected launches {want}")
+    print(f"[7] subtructAverageVectorWithWindow 192x256 on the card vs on "
+          f"the CPU: {compare_dense_small(dev)}")
+
+    launches = dict(zip(("K1", "K2", "K4", "K5", "K6"), launches),
+                    K3=tl_launches, K7=p_n["K7"])
+    rows = kernel_rows(dev, launches, devs)
     for r in rows:
         lib = r["library_ms"]
         print(f"[5] {r['name']}: {r['ms'] * 1e3:.2f} us/launch on the "

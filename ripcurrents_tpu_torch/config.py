@@ -1,8 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of the presets the legacy rip detector and the particle modes
-need, with the same field names and values as the JAX package's ``config.py``, so that one preset
-name means the same engine settings in both packages. The reference
+A copy of the presets the ported modes need, with the same field names
+and values as the JAX package's ``config.py``, so that one preset name
+means the same engine settings in both packages. The reference
 hard-codes these as #defines and per-call-site literals
 (RipCurrents_main/ripcurrents.hpp:4-13, ripcurrents.cpp:142-215).
 """
@@ -23,9 +23,16 @@ class FarnebackParams:
     """Parameters of Farneback dense optical flow.
 
     Field semantics match cv2.calcOpticalFlowFarneback, plus the knobs of
-    the fused level engine (flow/fused_update.py), which resamples the
-    second frame's expansion at a per-(row tile x subcolumn) integer base
-    displacement plus a per-pixel residual clamped to +-warp_residual.
+    the warp (flow/farneback.py):
+
+    - warp_impl 'fused': the fused level engine (flow/fused_update.py),
+      which resamples the second frame's expansion at a per-(row tile x
+      subcolumn) integer base displacement plus a per-pixel residual
+      clamped to +-warp_residual;
+    - the portable engine, whose warp is 'gather' (exact bilinear, any
+      displacement; also whenever warp_budget is None), 'shift' (the
+      shift decomposition, exact for |flow| <= warp_budget) or 'pallas'
+      (the same function as one hand-written kernel, K7).
     """
 
     pyr_scale: float = 0.5
@@ -35,6 +42,7 @@ class FarnebackParams:
     poly_n: int = 15
     poly_sigma: float = 1.2
     gaussian: bool = True    # OPTFLOW_FARNEBACK_GAUSSIAN; False = box blur
+    warp_budget: "int | None" = 16
     warp_impl: str = "fused"
     # Residual budget of the fused warp. An int applies to every pyramid
     # level; a tuple is indexed by level (finest first, last entry reused
@@ -142,3 +150,8 @@ class Thresholds:
     lower: float = 0.2
     mid: float = 0.5
     upper_init: float = 45.0   # main.cpp modes; legacy pipeline uses 100.0
+
+
+# Misc reference constants
+BUFFER_FRAME = 300       # ripcurrents.hpp:11 — ring buffer length for averages
+GRID_COUNT = 30          # ripcurrents.hpp:13 — arrows per row/col in averageVector

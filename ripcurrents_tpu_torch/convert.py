@@ -15,6 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ripcurrents_tpu_torch.analysis.meanflow import (AverageVectorState,
+                                                     RingMean)
 from ripcurrents_tpu_torch.config import LKParams
 from ripcurrents_tpu_torch.dynamics.advect import FieldState
 from ripcurrents_tpu_torch.dynamics.particles import (PopulationState,
@@ -22,10 +24,15 @@ from ripcurrents_tpu_torch.dynamics.particles import (PopulationState,
 from ripcurrents_tpu_torch.ops.hist import FlowHistogram
 from ripcurrents_tpu_torch.pipelines.common import FlowStream
 from ripcurrents_tpu_torch.pipelines.legacy import LegacyState
-from ripcurrents_tpu_torch.pipelines.modes import (PopulationMapState,
+from ripcurrents_tpu_torch.pipelines.modes import (AverageVectorModeState,
+                                                   PopulationMapState,
                                                    RedPointsState,
+                                                   ShearState,
                                                    StreaklinesState,
-                                                   TimelinesState)
+                                                   SubtractAverageState,
+                                                   TimelinesState,
+                                                   TrailsState,
+                                                   WindowedState)
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
@@ -39,10 +46,10 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
 
 
 def expansions_from_numpy(tables, device="cpu") -> tuple[torch.Tensor, ...]:
-    """The JAX ``FlowStream.exp`` tables (numpy float or bfloat16 arrays)
-    -> the port's bf16 tables."""
-    return tuple(tensor_from_numpy(t, device).to(torch.bfloat16)
-                 for t in tables)
+    """The JAX ``FlowStream.exp`` tables -> the port's tables, dtype kept:
+    the fused engine's bf16 (5, Hp', Wp') tables, the portable engine's
+    float32 (lh, lw, 5) ones."""
+    return tuple(tensor_from_numpy(t, device) for t in tables)
 
 
 def legacy_state_from_numpy(state, device="cpu") -> LegacyState:
@@ -107,14 +114,72 @@ def red_points_state_from_numpy(state, device="cpu") -> RedPointsState:
     return RedPointsState(*(tensor_from_numpy(a, device) for a in state))
 
 
-def particle_state_to_numpy(state) -> dict:
-    """The state of any particle mode (nested NamedTuples of tensors) -> a
-    flat dict of numpy arrays keyed by field name, for comparison with the
-    JAX state."""
+def _fstream(fs, device) -> FlowStream:
+    return FlowStream(expansions_from_numpy(fs.exp, device))
+
+
+def _ring(r, device) -> RingMean:
+    return RingMean(*(tensor_from_numpy(a, device) for a in r))
+
+
+def trails_state_from_numpy(state, device="cpu") -> TrailsState:
+    """A JAX ``streamlines``, ``timelinesOnSubtractAverageVector`` or
+    ``timelinesFarne`` state mapped to numpy -> the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return TrailsState(_fstream(state.fstream, device), t(state.seeds),
+                       t(state.overlay), t(state.framecount))
+
+
+def subtract_average_state_from_numpy(state,
+                                      device="cpu") -> SubtractAverageState:
+    """A JAX ``subtructAverageVector`` state mapped to numpy -> the port's
+    state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return SubtractAverageState(_fstream(state.fstream, device),
+                                t(state.max_disp), t(state.framecount))
+
+
+def windowed_state_from_numpy(state, device="cpu") -> WindowedState:
+    """A JAX ``subtructAverageVectorWithWindow`` state mapped to numpy ->
+    the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return WindowedState(_fstream(state.fstream, device),
+                         _ring(state.ring, device), t(state.max_disp),
+                         t(state.framecount))
+
+
+def shear_state_from_numpy(state, device="cpu") -> ShearState:
+    """A JAX ``shearRate`` state mapped to numpy -> the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return ShearState(_fstream(state.fstream, device),
+                      _ring(state.ring, device), t(state.max_frob),
+                      t(state.framecount))
+
+
+def average_vector_state_from_numpy(state,
+                                    device="cpu") -> AverageVectorModeState:
+    """A JAX ``averageVector`` state mapped to numpy -> the port's
+    state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return AverageVectorModeState(
+        _fstream(state.fstream, device),
+        AverageVectorState(_ring(state.av.ring, device),
+                           t(state.av.max_displacement)),
+        t(state.framecount))
+
+
+def state_to_numpy(state) -> dict:
+    """The state of any ported mode (nested NamedTuples of tensors) -> a
+    flat dict of numpy arrays keyed by field name (expansion tables as
+    ``exp0``, ``exp1``, ... in float32), for comparison with the JAX
+    state."""
     out = {}
     for name, v in zip(state._fields, state):
         if torch.is_tensor(v):
             out[name] = v.cpu().numpy()
+        elif hasattr(v, "_fields"):
+            out.update(state_to_numpy(v))
         else:
-            out.update(particle_state_to_numpy(v))
+            out.update({f"{name}{i}": e.to(torch.float32).cpu().numpy()
+                        for i, e in enumerate(v)})
     return out

@@ -1,6 +1,7 @@
-"""Particle advection through flow fields (port of the legacy-path
-functions of ``ripcurrents_tpu/dynamics/advect.py``: streamline and
-streamline_field, ripcurrents_module.cpp:486-528, :608-648).
+"""Particle advection through flow fields (port of the functions of
+``ripcurrents_tpu/dynamics/advect.py`` that the ported modes need:
+streamline, streamline_field, get_delta; ripcurrents_module.cpp:486-528,
+:608-679).
 
 Every seed (or every pixel's particle) advances at once, with a sticky
 `active` flag in place of the reference's early returns. Points are
@@ -89,3 +90,27 @@ def streamline_field(state: FieldState, flow: torch.Tensor, dt: float,
         disp = torch.where(ok[..., None], disp + d * (dt / iterations), disp)
         dist = torch.where(ok, dist + r, dist)
     return FieldState(disp, dist)
+
+
+def get_delta(pts: torch.Tensor, flow: torch.Tensor, dt: float,
+              upper) -> torch.Tensor:
+    """One advection step for arbitrary points (..., 2), frozen when
+    |delta| > upper (ripcurrents_module.cpp:650-679)."""
+    d, valid = sample_flow(flow, pts[..., 0], pts[..., 1])
+    r = torch.sqrt(torch.sum(d * d, dim=-1))
+    ok = valid & (r <= upper)
+    return torch.where(ok[..., None], pts + d * dt, pts)
+
+
+def delta_field(flow: torch.Tensor, dt: float, upper) -> torch.Tensor:
+    """averageVector's per-pixel displacement buffer: every pixel origin
+    advected one step (ripcurrents_module.cpp:393-397) -> (H, W, 2)."""
+    h, w = flow.shape[0], flow.shape[1]
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=flow.device),
+        torch.arange(w, dtype=torch.float32, device=flow.device),
+        indexing="ij")
+    d, valid = sample_flow(flow, xs, ys)
+    r = torch.sqrt(torch.sum(d * d, dim=-1))
+    ok = valid & (r <= upper)
+    return torch.where(ok[..., None], d * dt, 0.0)

@@ -1,13 +1,23 @@
-"""Farneback dense optical flow on the fused level engine.
+"""Farneback dense optical flow: the fused level engine and the portable
+engine.
 
-Port of the channels-first fused branch of ``ripcurrents_tpu/flow/
-farneback.py``: per-level polynomial expansion straight from the full-res
-frame (pre-smooth, pyramid resize and both expansion correlations composed
-into dense matrices on the host in float64, applied as float32 matmuls on
-operands rounded to bf16 as the TPU's blocked prep rounds them, and stored
-as bf16 in the halo'd table layout), the per-level residual,
-subcolumn and iteration schedule, and the coarse-to-fine pyramid with the
-flow kept in the padded (2, Hp, Wp) layout across levels.
+Port of ``ripcurrents_tpu/flow/farneback.py``:
+
+- per-level polynomial expansion straight from the full-res frame
+  (pre-smooth, pyramid resize and both expansion correlations composed
+  into banded matrices on the host in float64), applied by kernels K5 and
+  K6 (``flow/prep_kernel.py``) to operands rounded to bf16 with float32
+  accumulation, as the TPU's blocked prep rounds them: channels-first bf16
+  in the halo'd table layout for the fused engine, channels-last float32
+  for the portable engine;
+- the fused engine (``warp_impl="fused"``): the per-level residual,
+  subcolumn and iteration schedule of ``flow/fused_update.py``, with the
+  flow kept in the padded (2, Hp, Wp) layout across levels;
+- the portable engine (``warp_impl`` "gather", "shift" or "pallas"):
+  ``update_matrices`` (the "shift" and "pallas" warps are kernel K7,
+  ``flow/warp_kernel.py``), the banded window blur ``_blur_m`` and the
+  2x2 solve ``_solve_flow`` as plain PyTorch, with channels-last flow
+  resized between levels.
 
 Conventions: images are (H, W) (uint8 or float), flow is (H, W, 2) with
 channel 0 = dx (columns) and channel 1 = dy (rows), as OpenCV.
@@ -21,11 +31,14 @@ import numpy as np
 import torch
 
 from ripcurrents_tpu_torch.config import FarnebackParams
+from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.fused_update import (HALO_X, HALO_Y,
                                                      _row_tile, fused_level,
                                                      prepare_expansions)
+from ripcurrents_tpu_torch.flow.warp_kernel import warp5_shift
 from ripcurrents_tpu_torch.ops.conv import gaussian_kernel
 from ripcurrents_tpu_torch.ops.image import (_linear_weights,
+                                             resize_bilinear,
                                              resize_bilinear_cf_padded)
 
 
@@ -60,21 +73,15 @@ def _poly_exp_consts(n: int, sigma: float):
             float(ig11), float(ig03), float(ig33), float(ig55))
 
 
-@functools.lru_cache(maxsize=32)
-def _y_section_stride(ph: int) -> int:
-    """Row stride of the g/xg/xxg sections of the stacked y-pass matrix:
-    ph rounded up to a multiple of 128."""
-    return -(-ph // 128) * 128
-
-
 def _level_prep_matrices(h: int, w: int, lh: int, lw: int, n: int,
                          sigma: float, smooth_sz: int, blur_sigma: float,
                          ph: int, pw: int, pad_off: tuple[int, int]):
     """Compose (reflect-101 Gaussian pre-smooth at full res) o (bilinear
     level resize) o (expansion correlation, replicate border) into one y
-    matrix (h, 3*ps) and three x matrices (w, pw), built in float64 on the
-    host and returned as float32. The level lands at rows/cols
-    [pad_off, pad_off + (lh, lw)) of a zero (ph, pw) canvas."""
+    matrix (h, 3*ph), its g, xg and xxg sections stacked, and three x
+    matrices (w, pw), built in float64 on the host and returned as
+    float32. The level lands at rows/cols [pad_off, pad_off + (lh, lw)) of
+    a zero (ph, pw) canvas."""
     x = np.arange(-n, n + 1, dtype=np.float64)
     g = np.exp(-(x * x) / (2.0 * sigma * sigma))
     g /= g.sum()
@@ -119,9 +126,8 @@ def _level_prep_matrices(h: int, w: int, lh: int, lw: int, n: int,
 
     pre_y = resize_mat(h, lh) @ blur_mat(h)      # (lh, h)
     pre_x = resize_mat(w, lw) @ blur_mat(w)      # (lw, w)
-    ph_s = _y_section_stride(ph)
-    by3 = np.concatenate([padded(band_mat(lh, k) @ pre_y, ph_s, oy)
-                          for k in (g, xg, xxg)], axis=0).T   # (h, 3*ph_s)
+    by3 = np.concatenate([padded(band_mat(lh, k) @ pre_y, ph, oy)
+                          for k in (g, xg, xxg)], axis=0).T   # (h, 3*ph)
     bx_g = padded(band_mat(lw, g) @ pre_x, pw, ox).T          # (w, pw)
     bx_xg = padded(band_mat(lw, xg) @ pre_x, pw, ox).T
     bx_xxg = padded(band_mat(lw, xxg) @ pre_x, pw, ox).T
@@ -143,24 +149,55 @@ def _prep_matrices_on(args: tuple, device: torch.device,
                  for m in (by3.T, bx_g, bx_xg, bx_xxg))
 
 
+@functools.lru_cache(maxsize=32)
+def _prep_windows_on(args: tuple, device: torch.device) -> dict:
+    """K5/K6 windows of one level geometry on `device`."""
+    return prep_kernel.windows_on(
+        prep_kernel.band_windows(*_level_prep_matrices(*args)), device)
+
+
 def poly_exp_level(img: torch.Tensor, lh: int, lw: int, n: int,
                    sigma: float, smooth_sz: int, blur_sigma: float,
-                   pad_hw: tuple[int, int], pad_off: tuple[int, int],
-                   out_dtype: torch.dtype,
-                   operand_dtype: torch.dtype = torch.bfloat16
-                   ) -> torch.Tensor:
-    """Channels-first polynomial expansion (5, Ph, Pw) of one pyramid level
-    from the full-res frame: float32 matmuls against the composed matrices,
-    the level embedded at pad_off of a (Ph, Pw) zero canvas, cast to
-    out_dtype (bf16 for the kernels' tables).
+                   channels_first: bool = False,
+                   pad_hw: "tuple[int, int] | None" = None,
+                   pad_off: tuple[int, int] = (0, 0),
+                   out_dtype: "torch.dtype | None" = None) -> torch.Tensor:
+    """Polynomial expansion of one pyramid level straight from the full-res
+    frame img (h, w): K5 (y pass) then K6 (x3 pass and combine), or their
+    plain versions for CPU tensors. pad_hw=(Ph, Pw) with pad_off=(oy, ox)
+    embeds the level at rows [oy, oy+lh), cols [ox, ox+lw) of a zero
+    (Ph, Pw) canvas. -> (5, Ph, Pw) if channels_first else (Ph, Pw, 5),
+    in out_dtype (None: float32).
+
+    The matrices and the frame are rounded to bf16, the sums accumulate in
+    float32 and the y-pass result is stored as bf16, as the TPU's blocked
+    prep and its Pallas kernels compute it."""
+    h, w = img.shape
+    ph, pw = pad_hw if pad_hw is not None else (lh, lw)
+    _, _, _, ig11, ig03, ig33, ig55 = _poly_exp_consts(n, sigma)
+    args = (h, w, lh, lw, n, sigma, smooth_sz, blur_sigma, ph, pw,
+            tuple(pad_off))
+    win = _prep_windows_on(args, img.device)
+    t = prep_kernel.prep_y(img.to(torch.float32).contiguous(), win)
+    return prep_kernel.prep_x3(t, win, ph, (ig11, ig03, ig33, ig55),
+                               out_dtype or torch.float32, channels_first)
+
+
+def poly_exp_level_dense(img: torch.Tensor, lh: int, lw: int, n: int,
+                         sigma: float, smooth_sz: int, blur_sigma: float,
+                         pad_hw: tuple[int, int], pad_off: tuple[int, int],
+                         out_dtype: torch.dtype,
+                         operand_dtype: torch.dtype = torch.bfloat16
+                         ) -> torch.Tensor:
+    """Dense-matrix form of the channels-first ``poly_exp_level``: float32
+    matmuls against the whole composed matrices, >95% of whose products
+    are zeros. The yardstick chip_smoke.py times beside K5 + K6; the port
+    never calls it on the card.
 
     The matrices, the frame and the y-pass result are rounded to
     operand_dtype before the matmuls. bf16 (the default) is what the TPU
-    runs, its blocked prep with bf16 MXU inputs and f32 accumulation: the
-    products of bf16 values are exact in f32, so only the summation order
-    differs. float32 is the reference's dense CPU form
-    (``_poly_exp_level_dense``). The matmuls stay float32 either way (the
-    package switches TF32 off)."""
+    runs; float32 is the reference's dense CPU form. The matmuls stay
+    float32 either way (the package switches TF32 off)."""
     h, w = img.shape
     ph, pw = pad_hw
     _, _, _, ig11, ig03, ig33, ig55 = _poly_exp_consts(n, sigma)
@@ -168,13 +205,12 @@ def poly_exp_level(img: torch.Tensor, lh: int, lw: int, n: int,
             tuple(pad_off))
     by3t, bx_g, bx_xg, bx_xxg = _prep_matrices_on(args, img.device,
                                                   operand_dtype)
-    ps = _y_section_stride(ph)
     t = _rounded(torch.matmul(by3t, _rounded(img.to(torch.float32),
                                              operand_dtype)),
-                 operand_dtype)                             # (3*ps, w)
-    t0, t1 = t[:ph], t[ps:ps + ph]
+                 operand_dtype)                             # (3*ph, w)
+    t0, t1 = t[:ph], t[ph:2 * ph]
     tg = torch.matmul(t, bx_g)
-    b1, b3, b5 = tg[:ph], tg[ps:ps + ph], tg[2 * ps:2 * ps + ph]
+    b1, b3, b5 = tg[:ph], tg[ph:2 * ph], tg[2 * ph:]
     txg = torch.matmul(torch.cat([t0, t1]), bx_xg)
     b2, b6 = txg[:ph], txg[ph:]
     b4 = torch.matmul(t0, bx_xxg)
@@ -194,32 +230,198 @@ def _level_geometry(h: int, w: int, p: FarnebackParams, k: int):
     return scale, lh, lw, sigma, smooth_sz
 
 
+PORTABLE_WARPS = ("gather", "shift", "pallas")
+
+
 def _check_params(p: FarnebackParams) -> None:
-    if p.warp_impl != "fused" or p.poly_impl != "banded":
-        raise ValueError("the PyTorch port implements the fused engine "
-                         "only (warp_impl='fused', poly_impl='banded'); "
-                         f"got {p.warp_impl!r}, {p.poly_impl!r}")
+    if p.warp_impl not in ("fused",) + PORTABLE_WARPS or \
+            p.poly_impl != "banded":
+        raise ValueError(
+            "the PyTorch port implements warp_impl 'fused', 'gather', "
+            "'shift' and 'pallas' with poly_impl 'banded'; the 'tiled' warp "
+            "and the 'shifted' expansion are later work (ROADMAP.md); got "
+            f"{p.warp_impl!r}, {p.poly_impl!r}")
+
+
+def _prep_level_args(h: int, w: int, p: FarnebackParams, k: int) -> tuple:
+    """The prep geometry of pyramid level k of preset p at (h, w), as
+    ``_level_prep_matrices`` takes it: for the fused engine the level at
+    (HALO_Y, HALO_X) of its halo'd (Ph, Pw) canvas, for the portable
+    engine the level alone."""
+    _, lh, lw, sigma, smooth_sz = _level_geometry(h, w, p, k)
+    if p.warp_impl == "fused":
+        th = _row_tile(lh)
+        ph = -(-lh // th) * th + 2 * HALO_Y
+        pw = -(-lw // 128) * 128 + 2 * HALO_X
+        off = (HALO_Y, HALO_X)
+    else:
+        ph, pw, off = lh, lw, (0, 0)
+    return (h, w, lh, lw, p.poly_n, p.poly_sigma, smooth_sz, sigma, ph, pw,
+            off)
 
 
 def farneback_precompute(frame: torch.Tensor,
                          p: FarnebackParams) -> tuple[torch.Tensor, ...]:
-    """Per-level expansion tables of one frame, coarsest first, each
-    (5, Hp + 2*HALO_Y, Wp + 2*HALO_X) bf16 with the level at
-    (HALO_Y, HALO_X)."""
+    """Per-level expansion tables of one frame, coarsest first: for the
+    fused engine (5, Hp + 2*HALO_Y, Wp + 2*HALO_X) bf16 with the level at
+    (HALO_Y, HALO_X); for the portable engine (lh, lw, 5) float32."""
     _check_params(p)
     f = frame.to(torch.float32)
     h, w = f.shape
+    cf = p.warp_impl == "fused"
     out = []
     for k in range(p.levels, -1, -1):
-        _, lh, lw, sigma, smooth_sz = _level_geometry(h, w, p, k)
-        th = _row_tile(lh)
-        pad_hw = (-(-lh // th) * th + 2 * HALO_Y,
-                  -(-lw // 128) * 128 + 2 * HALO_X)
-        out.append(poly_exp_level(f, lh, lw, p.poly_n, p.poly_sigma,
-                                  smooth_sz, sigma, pad_hw=pad_hw,
-                                  pad_off=(HALO_Y, HALO_X),
-                                  out_dtype=torch.bfloat16))
+        _, _, lh, lw, n, sig, ss, bs, ph, pw, off = _prep_level_args(h, w, p,
+                                                                     k)
+        out.append(poly_exp_level(f, lh, lw, n, sig, ss, bs,
+                                  channels_first=cf, pad_hw=(ph, pw),
+                                  pad_off=off,
+                                  out_dtype=torch.bfloat16 if cf else None))
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# The portable engine: flow-conditioned matrix update, blur, solve
+# ---------------------------------------------------------------------------
+
+# Border down-weighting ramp (5 px), as OpenCV's FarnebackUpdateMatrices.
+_BORDER_RAMP = np.array([0.14, 0.14, 0.4472, 0.4472, 0.4472, 1.0],
+                        np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _border_scale(h: int, w: int, device: torch.device) -> torch.Tensor:
+    n = max(h, w)
+    d = np.minimum(np.arange(n), np.arange(n)[::-1])
+    bxy = _BORDER_RAMP[np.minimum(d, 5)]
+    return torch.from_numpy(bxy[:h, None] * bxy[None, :w]).to(device)
+
+
+def _grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                          torch.arange(w, dtype=torch.float32, device=device),
+                          indexing="ij")
+
+
+def _warp5_gather(r1: torch.Tensor, flow: torch.Tensor):
+    """Exact flow-conditioned bilinear resample of r1 (H, W, 5) by a
+    gather (any displacement). Returns (samples, inside)."""
+    h, w = r1.shape[0], r1.shape[1]
+    ys, xs = _grid(h, w, r1.device)
+    fx, fy = xs + flow[..., 0], ys + flow[..., 1]
+    x1 = torch.floor(fx)
+    y1 = torch.floor(fy)
+    inside = (x1 >= 0) & (y1 >= 0) & (x1 < w - 1) & (y1 < h - 1)
+    ax = fx - x1
+    ay = fy - y1
+    x1i = torch.clamp(x1.to(torch.int32), 0, w - 2).long()
+    y1i = torch.clamp(y1.to(torch.int32), 0, h - 2).long()
+    a00 = ((1 - ax) * (1 - ay))[..., None]
+    a01 = (ax * (1 - ay))[..., None]
+    a10 = ((1 - ax) * ay)[..., None]
+    a11 = (ax * ay)[..., None]
+    r1s = (a00 * r1[y1i, x1i] + a01 * r1[y1i, x1i + 1] +
+           a10 * r1[y1i + 1, x1i] + a11 * r1[y1i + 1, x1i + 1])
+    return r1s, inside
+
+
+def _warp5_shift_mask(h: int, w: int, flow: torch.Tensor, budget: int):
+    """The validity mask of the shift warp: the sample lands inside the
+    frame and |flow| <= budget on both axes. Returns (None, inside)."""
+    ys, xs = _grid(h, w, flow.device)
+    dx, dy = flow[..., 0], flow[..., 1]
+    x1 = torch.floor(xs + dx)
+    y1 = torch.floor(ys + dy)
+    inside = ((x1 >= 0) & (y1 >= 0) & (x1 < w - 1) & (y1 < h - 1) &
+              (torch.abs(dx) <= budget) & (torch.abs(dy) <= budget))
+    return None, inside
+
+
+def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
+                    warp_budget: "int | None" = None,
+                    warp_impl: str = "shift") -> torch.Tensor:
+    """The per-pixel normal-equation channels M = (G11, G12, G22, h1, h2)
+    (H, W, 5) from the expansions r0, r1 (H, W, 5) and the current flow
+    (H, W, 2), r1 resampled at x + flow: by a gather when warp_budget is
+    None or warp_impl is 'gather', else by the shift decomposition, K7
+    ('shift' and 'pallas', the JAX package's XLA and Pallas forms of one
+    function, are both K7 here)."""
+    h, w = r0.shape[0], r0.shape[1]
+    if warp_budget is None or warp_impl == "gather":
+        r1s, inside = _warp5_gather(r1, flow)
+    elif warp_impl in ("shift", "pallas"):
+        r1s = warp5_shift(r1.contiguous(), flow.contiguous(), warp_budget)
+        _, inside = _warp5_shift_mask(h, w, flow, warp_budget)
+    else:
+        raise ValueError(f"unported warp_impl {warp_impl!r}")
+    dx, dy = flow[..., 0], flow[..., 1]
+
+    # Where the warp lands outside the frame the second frame's sample
+    # counts as zero: the linear terms fall to r0/2, the quadratic terms
+    # to frame 0 alone.
+    r2 = torch.where(inside, (r0[..., 0] - r1s[..., 0]) * 0.5,
+                     r0[..., 0] * 0.5)
+    r3 = torch.where(inside, (r0[..., 1] - r1s[..., 1]) * 0.5,
+                     r0[..., 1] * 0.5)
+    r4 = torch.where(inside, (r0[..., 2] + r1s[..., 2]) * 0.5, r0[..., 2])
+    r5 = torch.where(inside, (r0[..., 3] + r1s[..., 3]) * 0.5, r0[..., 3])
+    r6 = torch.where(inside, (r0[..., 4] + r1s[..., 4]) * 0.25,
+                     r0[..., 4] * 0.5)
+
+    # Fold the prior displacement back in so the solve yields total flow.
+    r2 = r2 + r4 * dx + r6 * dy
+    r3 = r3 + r6 * dx + r5 * dy
+
+    scale = _border_scale(h, w, r0.device)
+    r2, r3, r4, r5, r6 = (t * scale for t in (r2, r3, r4, r5, r6))
+    return torch.stack([r4 * r4 + r6 * r6,
+                        (r4 + r5) * r6,
+                        r5 * r5 + r6 * r6,
+                        r4 * r2 + r6 * r3,
+                        r6 * r2 + r5 * r3], dim=-1)
+
+
+def _solve_flow(m: torch.Tensor) -> torch.Tensor:
+    """Per-pixel 2x2 solve of the blurred normal equations."""
+    g11, g12, g22, h1, h2 = (m[..., i] for i in range(5))
+    idet = 1.0 / (g11 * g22 - g12 * g12 + 1e-3)
+    fx = (g22 * h1 - g12 * h2) * idet
+    fy = (g11 * h2 - g12 * h1) * idet
+    return torch.stack([fx, fy], dim=-1)
+
+
+@functools.lru_cache(maxsize=32)
+def _banded_replicate(n: int, taps: tuple, device: torch.device
+                      ) -> torch.Tensor:
+    """(n, n) banded correlation matrix of a 1-D kernel with the replicate
+    border folded into the band (out = B^T contracted with the input)."""
+    k = np.asarray(taps, np.float32)
+    half = (len(k) - 1) // 2
+    b = np.zeros((n, n), np.float32)
+    dst = np.arange(n)
+    for i, kv in enumerate(k):
+        src = np.clip(dst - half + i, 0, n - 1)
+        np.add.at(b, (src, dst), kv)
+    return torch.from_numpy(b).to(device)
+
+
+def _blur_m(m: torch.Tensor, winsize: int, gaussian: bool) -> torch.Tensor:
+    """Window sum of the matrix channels (H, W, 5): Gaussian (sigma =
+    winsize/2*0.3) or box, replicate border, as two banded float32
+    matmuls."""
+    half = winsize // 2
+    if gaussian:
+        x = np.arange(-half, half + 1, dtype=np.float64)
+        sig = max(half * 0.3, 1e-6)
+        k = np.exp(-(x * x) / (2 * sig * sig))
+        k = (k / k.sum()).astype(np.float32)
+    else:
+        k = np.full((2 * half + 1,), 1.0 / (2 * half + 1), np.float32)
+    taps = tuple(float(v) for v in k)
+    by = _banded_replicate(m.shape[0], taps, m.device)
+    bx = _banded_replicate(m.shape[1], taps, m.device)
+    t = torch.einsum("sn,swc->nwc", by, m)
+    return torch.einsum("sn,hsc->hnc", bx, t)
 
 
 def _per_level(sched, k: int):
@@ -233,6 +435,8 @@ def farneback_from_expansions(e0, e1, hw: tuple[int, int],
                               p: FarnebackParams) -> torch.Tensor:
     """Dense flow (h, w, 2) from two frames' expansion tables."""
     _check_params(p)
+    if p.warp_impl != "fused":
+        return _portable_from_expansions(e0, e1, hw, p)
     h, w = hw
     wr = p.warp_residual
     subcol = p.warp_subcol
@@ -269,6 +473,42 @@ def farneback_from_expansions(e0, e1, hw: tuple[int, int],
         flow = fused_level(prep, flow, p.winsize, p.gaussian, bres_k,
                            iters_k)
     return torch.movedim(flow[:, :h, :w], 0, -1)
+
+
+def _portable_from_expansions(e0, e1, hw: tuple[int, int],
+                              p: FarnebackParams) -> torch.Tensor:
+    """The portable engine's pyramid loop: flow at its true (lh, lw, 2)
+    shape, resized by 1/pyr_scale between levels; per level the update,
+    then iterations x (blur, solve), updating again between them."""
+    h, w = hw
+    it_sched = p.iters_hires if h * w >= p.warp_hires_px else None
+    flow = None
+    for idx, k in enumerate(range(p.levels, -1, -1)):
+        _, lh, lw, _, _ = _level_geometry(h, w, p, k)
+        iters_k = p.iterations if it_sched is None \
+            else _per_level(it_sched, k)
+        iters_k = max(1, iters_k)
+        r0, r1 = e0[idx], e1[idx]
+        if flow is None:
+            flow = torch.zeros((lh, lw, 2), dtype=torch.float32,
+                               device=r0.device)
+        else:
+            flow = resize_bilinear(flow, (lh, lw)) * (1.0 / p.pyr_scale)
+        m = update_matrices(r0, r1, flow, p.warp_budget, p.warp_impl)
+        for i in range(iters_k):
+            flow = _solve_flow(_blur_m(m, p.winsize, p.gaussian))
+            if i < iters_k - 1:
+                m = update_matrices(r0, r1, flow, p.warp_budget,
+                                    p.warp_impl)
+    return flow
+
+
+def farneback(prev: torch.Tensor, nxt: torch.Tensor,
+              p: FarnebackParams) -> torch.Tensor:
+    """Dense flow from `prev` to `nxt`: (H, W) -> (H, W, 2) float32."""
+    return farneback_from_expansions(farneback_precompute(prev, p),
+                                     farneback_precompute(nxt, p),
+                                     tuple(prev.shape), p)
 
 
 def farneback_stream(prev_exp, nxt: torch.Tensor, p: FarnebackParams):

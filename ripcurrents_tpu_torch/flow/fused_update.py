@@ -154,16 +154,6 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _launch_device(device: torch.device) -> bool:
-    """True when the wrapper must launch its CUDA kernel, False for the
-    plain version (CPU tensors only); anything else raises."""
-    if device.type == "cuda":
-        return True
-    if device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {device}")
-
-
 # ---------------------------------------------------------------------------
 # K1: the matrix update
 # ---------------------------------------------------------------------------
@@ -252,7 +242,7 @@ def farneback_update(prep: dict, flow: torch.Tensor,
     if hp % th or wp % sw or wp % 128 or not 0 <= bres < HALO_Y - 1:
         raise ValueError(f"bad geometry: hpwp={(hp, wp)} th={th} sw={sw} "
                          f"bres={bres}")
-    if not _launch_device(dev):
+    if not kernels.launches_on(dev):
         return farneback_update_plain(prep["p0"], prep["p1"], flow,
                                       prep["counts"], (h, w), th, sw, bres)
     m = torch.empty((5, hp, wp), dtype=M_DTYPE, device=dev)
@@ -319,7 +309,7 @@ def farneback_blur_solve(m: torch.Tensor, hw: tuple[int, int], winsize: int,
         raise ValueError(f"bad geometry: m {tuple(m.shape)} hw={hw} "
                          f"winsize={winsize}")
     wy, wx = _blur_weights_on(hp, h, winsize, gaussian, dev)
-    if not _launch_device(dev):
+    if not kernels.launches_on(dev):
         return farneback_blur_solve_plain(m, hw, wy, wx, zero_pads)
     flow = torch.empty((2, hp, wp), dtype=torch.float32, device=dev)
     err = kernels.entry("farneback_blur_solve")(

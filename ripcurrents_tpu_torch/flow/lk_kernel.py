@@ -189,10 +189,8 @@ def lk_track(pyr_prev, pyr_next, derivs, pts: torch.Tensor, p: LKParams):
                     f"level image: expected contiguous float32 "
                     f"{(b,) + tuple(ref.shape[1:])} on {dev}, got {t.dtype} "
                     f"{tuple(t.shape)} on {t.device}")
-    if dev.type == "cpu":
+    if not kernels.launches_on(dev):
         return lk_track_plain(pyr_prev, pyr_next, derivs, pts, p)
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
     wx, wy = p.win
     shared = 3 * wx * wy * 4
     if shared > MAX_SHARED - 1024 or b > 65535 or n == 0:

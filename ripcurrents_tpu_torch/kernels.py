@@ -24,6 +24,8 @@ import pathlib
 import shutil
 import subprocess
 
+import torch
+
 _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -46,6 +48,11 @@ _ENTRIES = {
                   _F, _F, _P]),
     "resize_cf_padded": ("resize_cf_padded_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "prep_y": ("prep_y_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "prep_x3": ("prep_x3_launch",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
+                 _P]),
+    "warp5_shift": ("warp5_shift_launch", [_P, _P, _P, _I, _I, _I, _P]),
 }
 
 
@@ -113,6 +120,16 @@ def _libs() -> dict:
 def entry(stem: str):
     """The loaded C launch function of one kernel (builds on first use)."""
     return _libs()[stem][1]
+
+
+def launches_on(device: torch.device) -> bool:
+    """True when a wrapper must launch its CUDA kernel on `device`, False
+    for its plain version (CPU tensors only); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {device}")
 
 
 def check(err: int, what: str) -> None:

@@ -1,6 +1,7 @@
-"""HSV -> BGR with OpenCV float conventions (port of the float branch of
-``hsv_to_bgr`` from ``ripcurrents_tpu/ops/color.py``): H in degrees
-[0, 360), S and V in [0, 1]."""
+"""HSV -> BGR with OpenCV conventions (port of ``hsv_to_bgr`` from
+``ripcurrents_tpu/ops/color.py``): float images have H in degrees
+[0, 360) and S, V in [0, 1]; uint8 images have H in [0, 180) and S, V in
+[0, 255]."""
 
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ def _hsv_to_rgb_float(h, s, v):
 
 
 def hsv_to_bgr(hsv: torch.Tensor) -> torch.Tensor:
-    """(..., 3) float HSV (H in degrees) -> float BGR in [0, 1]."""
+    """(..., 3) HSV -> BGR: float HSV (H in degrees) -> float BGR in
+    [0, 1]; uint8 HSV (H in [0, 180)) -> uint8 BGR."""
+    if hsv.dtype == torch.uint8:
+        h = hsv[..., 0].to(torch.float32) * 2.0
+        s = hsv[..., 1].to(torch.float32) / 255.0
+        v = hsv[..., 2].to(torch.float32) / 255.0
+        r, g, b = _hsv_to_rgb_float(h, s, v)
+        bgr = torch.stack([b, g, r], dim=-1)
+        return torch.clamp(torch.round(bgr * 255.0), 0, 255).to(torch.uint8)
     r, g, b = _hsv_to_rgb_float(hsv[..., 0], hsv[..., 1], hsv[..., 2])
     return torch.stack([b, g, r], dim=-1)

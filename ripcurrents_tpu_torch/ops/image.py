@@ -217,10 +217,8 @@ def resize_bilinear_cf_padded(img: torch.Tensor, src_true: tuple[int, int],
     c, sph, spw = img.shape
     key = resize_key(img, src_true, dst_true, dst_pad, scale)
     taps = _padded_taps_on(key, img.device)
-    if img.device.type == "cpu":
+    if not kernels.launches_on(img.device):
         return resize_cf_padded_plain(img, *taps)
-    if img.device.type != "cuda":
-        raise ValueError(f"no kernel for device {img.device}")
     out = torch.empty((c,) + tuple(dst_pad), dtype=torch.float32,
                       device=img.device)
     err = kernels.entry("resize_cf_padded")(

@@ -1,6 +1,6 @@
 """Shared pipeline plumbing: the mode registry, configuration, frame prep,
 the flow stream (port of the parts of ``ripcurrents_tpu/pipelines/
-common.py`` that the legacy path and the particle modes need)."""
+common.py`` that the ported modes need)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from ripcurrents_tpu_torch.config import (FarnebackParams, HistogramParams,
-                                          LKParams, XDIM, YDIM)
+                                          LKParams, Thresholds, XDIM, YDIM)
 from ripcurrents_tpu_torch.flow.farneback import (farneback_precompute,
                                                   farneback_stream)
 from ripcurrents_tpu_torch.ops.image import (bgr_to_gray, resize_area,
@@ -20,12 +20,12 @@ from ripcurrents_tpu_torch.ops.image import (bgr_to_gray, resize_area,
 @dataclasses.dataclass(frozen=True)
 class ModeConfig:
     """Static configuration threaded into every mode factory: the fields
-    of the legacy pipeline and of the particle modes, with the reference's
-    values as defaults."""
+    of the ported modes, with the reference's values as defaults."""
     xdim: int = XDIM
     ydim: int = YDIM
     total_frames: int = 0        # CAP_PROP_FRAME_COUNT; 0 = filled by runner
     seed: int = 0                # seed of the random seed points
+    thresholds: Thresholds = Thresholds()
     hist: HistogramParams = HistogramParams()
     lk: LKParams = LKParams.particles()
     timeline_start: Tuple[float, float] = (10.0, 150.0)
@@ -36,7 +36,21 @@ class ModeConfig:
     population_rect: Tuple[float, float, float, float] = (250, 150, 300, 200)
     population_vertices: int = 50
     population_faithful_bias: bool = True
+    window_size: int = 10        # subtructAverageVectorWithWindow
+    average_buffer: int = 300    # averageVector ring (BUFFER_FRAME)
+    shear_window: int = 100
+    n_streamline_seeds: int = 20
     legacy_seeds: int = 250
+    # Optional Farneback warp override applied on top of each mode's
+    # call-site preset (None = keep the preset's choice).
+    warp_impl: "str | None" = None
+
+
+def fb_preset(preset: FarnebackParams, cfg: ModeConfig) -> FarnebackParams:
+    """Apply the ModeConfig warp override to a call-site preset."""
+    if cfg.warp_impl is None:
+        return preset
+    return dataclasses.replace(preset, warp_impl=cfg.warp_impl)
 
 
 def to_device(raw, device: torch.device) -> torch.Tensor:
@@ -47,8 +61,15 @@ def to_device(raw, device: torch.device) -> torch.Tensor:
 def prep_frame(raw_bgr_u8: torch.Tensor, cfg: ModeConfig,
                first: bool = False):
     """Resize to the working resolution + grayscale (main.cpp:142-144);
-    first frames use INTER_AREA (main.cpp:125). -> (resized BGR, gray)."""
+    first frames use INTER_AREA (main.cpp:125). -> (resized BGR, gray).
+
+    Gray-input modes (GRAY_INPUT) may be fed 2-D gray frames; the colour
+    canvas is then None (those modes never read it)."""
     resize = resize_area if first else resize_bilinear
+    if raw_bgr_u8.dim() == 2:
+        if tuple(raw_bgr_u8.shape) == (cfg.ydim, cfg.xdim):
+            return None, raw_bgr_u8
+        return None, resize(raw_bgr_u8, (cfg.ydim, cfg.xdim))
     resized = resize(raw_bgr_u8, (cfg.ydim, cfg.xdim))
     return resized, bgr_to_gray(resized)
 
@@ -76,8 +97,8 @@ def flow_stream_step(fs: FlowStream, gray: torch.Tensor,
 MODES: Dict[str, Callable] = {}
 
 # Modes whose step reads only the grayscale frame (their output is a pure
-# flow visualization, never the color canvas). None of the ported modes is
-# one; the set keeps the registry's shape for the dense modes.
+# flow visualization, never the color canvas): they may be fed 2-D gray
+# frames.
 GRAY_INPUT: set = set()
 
 

@@ -1,6 +1,5 @@
-"""Rasterization of polylines and filled circles onto device images (port
-of the functions of ``ripcurrents_tpu/viz/draw.py`` that the legacy path
-and the particle modes need).
+"""Rasterization of polylines, filled circles, arrows and the frame count
+onto device images (port of ``ripcurrents_tpu/viz/draw.py``).
 
 A segment is sampled at a fixed number of points, rounded to pixels and
 scattered with the thickness offsets; invalid or off-image points go to a
@@ -12,6 +11,7 @@ and they are drawn in one scatter.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -110,3 +110,70 @@ def blend(a_u8: torch.Tensor, b_u8: torch.Tensor, alpha: float,
     """cv::addWeighted(a, alpha, b, beta, 0)."""
     out = a_u8.to(torch.float32) * alpha + b_u8.to(torch.float32) * beta
     return torch.clamp(torch.round(out), 0, 255).to(torch.uint8)
+
+
+def draw_arrows(img: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
+                valid: torch.Tensor, color, thickness: int = 1,
+                tip_frac: float = 0.4) -> torch.Tensor:
+    """cv::arrowedLine: the shaft and two tip barbs at 45 degrees."""
+    img = draw_segments(img, starts, ends, valid, color, thickness)
+    d = ends - starts
+    tip = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)) * tip_frac
+    ang = torch.atan2(d[:, 1], d[:, 0])
+    for s in (math.pi / 4, -math.pi / 4):
+        barb = ends - tip * torch.stack([torch.cos(ang + s),
+                                         torch.sin(ang + s)], dim=-1)
+        img = draw_segments(img, ends, barb, valid, color, thickness)
+    return img
+
+
+def paste(img: torch.Tensor, patch: torch.Tensor, y: int,
+          x: int) -> torch.Tensor:
+    """Copy `patch` into img at (y, x), the start clamped so that the patch
+    fits (the warpAffine legend placement, main.cpp:1161-1162)."""
+    ph, pw = patch.shape[0], patch.shape[1]
+    y = min(max(y, 0), img.shape[0] - ph)
+    x = min(max(x, 0), img.shape[1] - pw)
+    out = img.clone()
+    out[y:y + ph, x:x + pw] = patch.to(img.dtype)
+    return out
+
+
+# A minimal 5x3 digit font for the frame count.
+_DIGITS = [
+    "111101101101111", "010110010010111", "111001111100111",
+    "111001111001111", "101101111001001", "111100111001111",
+    "111100111101111", "111001001001001", "111101111101111",
+    "111101111001111",
+]
+
+
+@functools.lru_cache(maxsize=1)
+def _digit_masks() -> np.ndarray:
+    m = np.zeros((10, 5, 3), np.uint8)
+    for d, s in enumerate(_DIGITS):
+        m[d] = np.array([int(c) for c in s], np.uint8).reshape(5, 3)
+    return m
+
+
+def draw_frame_count(img: torch.Tensor, framecount, pos=(30, 30),
+                     scale: int = 2, color=(250, 250, 250)) -> torch.Tensor:
+    """drawFrameCount (ripcurrents_module.cpp:1198-1201): the frame number
+    as light bitmap digits near (30, 30)."""
+    dev = img.device
+    masks = torch.from_numpy(np.kron(_digit_masks(),
+                                     np.ones((scale, scale), np.uint8))).to(dev)
+    fc = torch.as_tensor(framecount, dtype=torch.int32, device=dev)
+    digits = torch.stack([(fc // 10000) % 10, (fc // 1000) % 10,
+                          (fc // 100) % 10, (fc // 10) % 10, fc % 10]).long()
+    shown = torch.stack([fc >= 10000, fc >= 1000, fc >= 100, fc >= 10,
+                         torch.ones_like(fc, dtype=torch.bool)])
+    x0, y0 = pos
+    dh, dw = 5 * scale, 3 * scale
+    ys = (torch.arange(dh, device=dev)[:, None] + y0).expand(dh, dw)
+    for i in range(5):
+        xs = (torch.arange(dw, device=dev)[None, :] + x0 +
+              i * (dw + scale)).expand(dh, dw)
+        on = (masks[digits[i]] > 0) & shown[i]
+        img = _scatter_points(img, ys, xs, on, color)
+    return img

@@ -58,12 +58,18 @@ def _jax_poly(img, args):
 
 
 def _port_poly(img, args, operand_dtype=torch.bfloat16):
+    """The port's channels-first bf16 level table: the banded K5/K6 plain
+    versions (bf16 operands), or the dense form with float32 operands."""
     _, _, lh, lw, n, sig, ss, bs, ph, pw, off = args
-    return tfb.poly_exp_level(torch.from_numpy(img).to(torch.float32), lh,
-                              lw, n, sig, ss, bs, pad_hw=(ph, pw),
-                              pad_off=off, out_dtype=torch.bfloat16,
-                              operand_dtype=operand_dtype
-                              ).to(torch.float32).numpy()
+    f = torch.from_numpy(img).to(torch.float32)
+    if operand_dtype == torch.float32:
+        out = tfb.poly_exp_level_dense(f, lh, lw, n, sig, ss, bs, (ph, pw),
+                                       off, torch.bfloat16, torch.float32)
+    else:
+        out = tfb.poly_exp_level(f, lh, lw, n, sig, ss, bs,
+                                 channels_first=True, pad_hw=(ph, pw),
+                                 pad_off=off, out_dtype=torch.bfloat16)
+    return out.to(torch.float32).numpy()
 
 
 @pytest.mark.parametrize("level", [2, 1, 0])
@@ -167,6 +173,7 @@ def test_engine_matches_tpu_fused_path(tpu_stream):
 
 def test_engine_rejects_unported_warps():
     import dataclasses
-    p = dataclasses.replace(FarnebackParams.legacy(), warp_impl="gather")
-    with pytest.raises(ValueError):
-        tfb.farneback_precompute(torch.zeros((H, W)), p)
+    for kw in ({"warp_impl": "tiled"}, {"poly_impl": "shifted"}):
+        p = dataclasses.replace(FarnebackParams.legacy(), **kw)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tfb.farneback_precompute(torch.zeros((H, W)), p)

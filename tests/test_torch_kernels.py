@@ -52,7 +52,7 @@ def test_legacy_step_on_card_matches_cpu(card):
 def test_legacy_main_path_launches_both_kernels(card):
     _, _, launches, _ = _chip_smoke().run_legacy(
         card, frames=40, xdim=320, ydim=240, raw_hw=(360, 640))
-    assert launches == (6 * 40, 6 * 40, 2 * 40)
+    assert launches == (6 * 40, 6 * 40, 2 * 40, 3 * 40, 3 * 40)
 
 
 @pytest.mark.parametrize("hw,preset", [((480, 640), "legacy"),

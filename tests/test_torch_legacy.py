@@ -165,9 +165,14 @@ def test_port_imports_no_jax():
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     repo = pathlib.Path(__file__).resolve().parents[1]
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=repo)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 20
+    mods = set(r.stdout.split())
+    assert len(mods) >= 35
+    assert {f"ripcurrents_tpu_torch.{m}" for m in (
+        "flow.prep_kernel", "flow.warp_kernel", "analysis.meanflow",
+        "analysis.shear", "viz.color", "viz.draw", "pipelines.modes",
+        "convert", "trace_legacy")} <= mods

@@ -75,12 +75,12 @@ def test_mode_matches_jax_over_three_frames(mode):
     jstate = jinit(FRAMES[0])
     _, tstep = MODES[mode](_cfg(), device="cpu")
     tstate = CARRY[mode](jax.tree.map(np.asarray, jstate))
-    start = convert.particle_state_to_numpy(tstate)[VERTS[mode]]
+    start = convert.state_to_numpy(tstate)[VERTS[mode]]
     for raw in FRAMES[1:]:
         jstate, jout = jstep(jstate, raw)
         tstate, tout = tstep(tstate, raw)
     want = jax.tree.map(np.asarray, jstate)
-    got = convert.particle_state_to_numpy(tstate)
+    got = convert.state_to_numpy(tstate)
     wv = want
     for name in (("timeline",) if mode == "timelines" else
                  ("pop",) if mode == "populationMap" else ()):
@@ -160,7 +160,11 @@ def test_run_frames_needs_a_card_by_default():
 
 def test_registry_holds_the_ported_modes():
     assert set(MODES) == {"legacy", "timelines", "streaklines",
-                          "populationMap", "flowRedPoints"}
+                          "populationMap", "flowRedPoints", "streamlines",
+                          "timelinesOnSubtractAverageVector",
+                          "timelinesFarne", "subtructAverageVector",
+                          "subtructAverageVectorWithWindow", "shearRate",
+                          "averageVector"}
     assert set(MODES) <= set(JAX_MODES)
     with pytest.raises(KeyError):
-        next(runner.run_frames("streamlines", FRAMES, _cfg(), device="cpu"))
+        next(runner.run_frames("timex", FRAMES, _cfg(), device="cpu"))
