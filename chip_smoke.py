@@ -9,7 +9,7 @@ CUDA toolkit:
 
 Every phase passes or raises (the script catches nothing):
 
-1. the card's name and power limit; build the seven kernels of ``csrc/``
+1. the card's name and power limit; build the eight kernels of ``csrc/``
    with nvcc for sm_90a and print the build time and the ptxas report;
 2. K1 (farneback_update), K2 (farneback_blur_solve) and the level loop
    against their plain versions on the card, at the main path's shapes:
@@ -23,7 +23,12 @@ Every phase passes or raises (the script catches nothing):
    their plain versions and the dense matmul form at every level of the
    640x480 legacy and 1080p windowed tables and of the 640x480
    channels-last tables of the portable engine; K7 (warp5_shift) against
-   its plain version at 640x480 with flows inside and beyond +-16 px;
+   its plain version at 640x480 with flows inside and beyond +-16 px; K8
+   (warp_tiles) against its plain version in its halo layout at 1080p
+   (bres 2 with 384-wide and bres 1 with 640-wide subcolumns, the
+   bench_warp configurations, bases up to the halo clamp; and its no-base
+   instance) and in its frame layout at 640x480 (tile 64 x 256, bres 2 and
+   4, flows up to +-24 px plus noise);
 3. the legacy rip detector (``make_legacy``, 250 seeds) on 40 synthetic
    1280x720 moving-texture frames at 640x480: finite outputs of the right
    shapes, a live duty mask, K1 and K2 each launched 6 times, K4 twice and
@@ -31,7 +36,8 @@ Every phase passes or raises (the script catches nothing):
    against the same step on the CPU (plain versions);
 4. the windowed Farneback stream at 1920x1080;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
-   version, its bound and a library call, as one JSON line;
+   version, its bound and a library call, as one JSON line (K8 in its
+   frame layout, the tiled engine's level 0);
 6. the particle modes through ``run_frames`` at 640x480 from 1280x720
    frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
    ``streaklines`` (1280 vertices), ``populationMap`` and
@@ -41,9 +47,15 @@ Every phase passes or raises (the script catches nothing):
    1280x720 frames: ``subtructAverageVectorWithWindow`` for 40 frames, the
    other six for a few frames each (``averageVector`` with its 300-frame
    ring), then ``subtructAverageVector`` on the portable engine
-   (``warp_impl="pallas"``: K7 9 times per frame); then
-   ``subtructAverageVectorWithWindow`` at 192x256 on the card against the
-   same steps on the CPU.
+   (``warp_impl="pallas"``: K7 9 times per frame) and on its tiled warp
+   (``warp_impl="tiled"``: K8 9 times per frame); then
+   ``subtructAverageVectorWithWindow`` on the fused engine and on the
+   tiled warp at 192x256 on the card against the same steps on the CPU,
+   and ``subtructAverageVector``'s flow on both (its pixels are read);
+8. ``bench_warp`` (the fused engine's warp stage alone at 1080p) at both
+   configurations of ``tools/bench_warp_variants.py`` (bres 2 with
+   384-wide subcolumns, bres 1 with 640-wide ones): K8, its no-base floor,
+   K1 and ``grid_sample``, with K8's bound and plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -52,6 +64,7 @@ that. Without a card the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -62,7 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ripcurrents_tpu_torch import kernels
+from ripcurrents_tpu_torch import bench_warp, kernels
 from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
 from ripcurrents_tpu_torch.dynamics.particles import timeline_init
 from ripcurrents_tpu_torch.flow import farneback as fb
@@ -116,6 +129,9 @@ LK_ERR_RTOL = 1e-4         # plus 1e-7 absolute
 # one-ULP bf16 flips are reported, not bounded.
 PREP_TOL = 0.0
 WARP_TOL = 0.0
+# K8 and its no-base instance round each product and sum alike with their
+# plain versions and reduce each base in float64: bit for bit.
+TILES_TOL = 0.0
 # K7 against the exact bilinear gather on the pixels the mask keeps:
 # |d| <= WARP_GATHER_REL * the channel's largest |r1| (the shift sum and
 # the gather round their products and sums differently; the CPU tests hold
@@ -431,6 +447,74 @@ def check_warp(h, w, device, budget=16, flow_px=24.0):
     return res
 
 
+def halo_tiles_inputs(device, bres, sw, seed=0):
+    """K8's halo-layout inputs at 1080p: bench_warp's table and N(0, 3)
+    flows plus a smooth field of up to +-60 px, so that the block bases
+    spread and the y base clamp (+-(HALO_Y - bres - 1)) is reached."""
+    g = bench_warp.inputs(device, sw, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    coarse = (torch.rand((1, 2, 6, 10), generator=gen) * 2 - 1) * 60.0
+    field = F.interpolate(coarse, size=(g["hp"], g["wp"]), mode="bilinear",
+                          align_corners=False)[0]
+    g["flow"] = (g["flow"] + field.to(device)).contiguous()
+    return g
+
+
+def check_tiles(device):
+    """K8 against its plain version: the halo layout at 1080p at both
+    bench_warp configurations (with the no-base instance), the frame layout
+    at 640x480 with tile (64, 256), bres 2 and 4. Returns the deviations
+    and what the inputs exercised; raises past TILES_TOL or when no base
+    or clamp was exercised."""
+    out = {}
+    for bres, sw in ((2, None), (1, 640)):
+        g = halo_tiles_inputs(device, bres, sw)
+        args = (g["table"], g["flow"], g["counts"], g["th"], g["sw"], bres)
+        got = warp_kernel.warp_tiles(*args)
+        got_z = warp_kernel.warp_tiles_nobase(g["table"], g["flow"],
+                                              g["th"], g["sw"], bres)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        d = (got - warp_kernel.warp_tiles_plain(*args)).abs().max().item()
+        dz = (got_z - warp_kernel.warp_tiles_nobase_plain(
+            g["table"], g["flow"], g["th"], g["sw"], bres)).abs().max().item()
+        lim_y = fu.HALO_Y - bres - 1
+        bases = warp_kernel.tile_bases_plain(g["flow"], g["counts"], g["th"],
+                                             g["sw"], fu.HALO_X - bres - 1,
+                                             lim_y)
+        res = {"max": d, "nobase_max": dz,
+               "base_min": bases.min().item(), "base_max": bases.max().item(),
+               "y_clamped_blocks": int((bases[1].abs() == lim_y).sum())}
+        if d > TILES_TOL or dz > TILES_TOL or res["y_clamped_blocks"] == 0:
+            raise AssertionError(f"K8 halo layout, bres {bres}: {res}")
+        out[f"halo_1080p_bres{bres}_sw{g['sw']}"] = res
+    h, w, th, tw = 480, 640, 64, 256
+    for bres in (2, 4):
+        r1, flow = warp_inputs(h, w, device, 24.0, seed=bres)
+        gen = torch.Generator().manual_seed(bres)
+        flow = (flow + (torch.randn(flow.shape, generator=gen) * 1.5).to(
+            device)).contiguous()
+        counts = warp_kernel.frame_counts(h, w, th, tw, device)
+        got = warp_kernel.warp_tiles(r1, flow, counts, th, tw, bres)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        plain = warp_kernel.warp_tiles_plain(r1, flow, counts, th, tw, bres)
+        bases = warp_kernel.tile_bases_plain(flow.permute(2, 0, 1), counts,
+                                             th, tw, warp_kernel.MAX_BASE,
+                                             warp_kernel.MAX_BASE)
+        full = bases.repeat_interleave(th, 1).repeat_interleave(tw, 2)
+        resid = flow.permute(2, 0, 1) - full[:, :h, :w]
+        res = {"max": (got - plain).abs().max().item(),
+               "base_abs_max": bases.abs().max().item(),
+               "residual_clamped_share":
+                   (resid.abs() > bres).any(0).float().mean().item()}
+        if res["max"] > TILES_TOL or res["base_abs_max"] < 2 or \
+                not 0.0 < res["residual_clamped_share"] < 1.0:
+            raise AssertionError(f"K8 frame layout, bres {bres}: {res}")
+        out[f"frame_640x480_bres{bres}"] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the legacy step
 # ---------------------------------------------------------------------------
@@ -491,8 +575,8 @@ def run_legacy(device, frames=FRAMES, xdim=640, ydim=480,
         torch.cuda.synchronize(device)
     host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
     ev_ms = ev0.elapsed_time(ev1) / (frames - warm) if cuda else None
-    launches = tuple(n for name, n in launch_counts().items()
-                     if name not in ("K3", "K7"))
+    counts = launch_counts()
+    launches = tuple(counts[k] for k in ("K1", "K2", "K4", "K5", "K6"))
     check_legacy_outputs(outs, cfg)
     for f in ("disp", "dist"):
         if not bool(torch.isfinite(getattr(state.field, f)).all()):
@@ -704,30 +788,68 @@ def run_dense_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
     return host_ms, ev_ms, launches, out
 
 
-def compare_dense_small(device, mode="subtructAverageVectorWithWindow",
-                        n=3):
+@contextlib.contextmanager
+def _recorded_flows(flows: list):
+    """Append every flow the modes' stream step computes to `flows`."""
+    real = modes.flow_stream_step
+
+    def step(fs, gray, fb):
+        flow, nxt = real(fs, gray, fb)
+        flows.append(flow.cpu())
+        return flow, nxt
+
+    modes.flow_stream_step = step
+    try:
+        yield
+    finally:
+        modes.flow_stream_step = real
+
+
+def dense_small_readings(device, mode, n, cfg: ModeConfig):
     """A dense mode at 192x256 on `device` against the same steps on the
-    CPU (plain versions), from the same frames: the ring mean of the flow
-    and the output frames, held to the DENSE_* limits."""
-    cfg = ModeConfig(xdim=256, ydim=192, window_size=3)
+    CPU (plain versions), from the same frames: how far apart the flow's
+    mean over the steps (the ring's mean where the mode keeps one) and
+    the last output frames are."""
     raw = moving_frames(n + 1, 288, 384, torch.device("cpu"))
     res = {}
     for dev in (device, torch.device("cpu")):
         stats = runner.RunStats()
-        outs = list(runner.run_frames(mode, raw, cfg, device=dev,
-                                      stats=stats))
-        res[dev.type] = (stats.state.ring.mean.cpu(), outs[-1].cpu())
+        flows = []
+        with _recorded_flows(flows):
+            outs = list(runner.run_frames(mode, raw, cfg, device=dev,
+                                          stats=stats))
+        ring = getattr(stats.state, "ring", None)
+        mean = ring.mean.cpu() if ring is not None \
+            else torch.stack(flows).mean(0)
+        res[dev.type] = (mean, outs[-1].cpu())
     (mg, og), (mc, oc) = res[device.type], res["cpu"]
     d = (mg - mc).norm(dim=-1).flatten()
-    out = {"ring_mean_median_px": d.median().item(),
-           "ring_mean_p99_px": torch.quantile(d, 0.99).item(),
-           "ring_mean_max_px": d.max().item(),
-           "pixels_equal": (og == oc).all(dim=-1).float().mean().item()}
+    return {"ring_mean_median_px": d.median().item(),
+            "ring_mean_p99_px": torch.quantile(d, 0.99).item(),
+            "ring_mean_max_px": d.max().item(),
+            "pixels_equal": (og == oc).all(dim=-1).float().mean().item()}
+
+
+def compare_dense_small(device, mode="subtructAverageVectorWithWindow",
+                        n=3, cfg=ModeConfig(xdim=256, ydim=192,
+                                            window_size=3)):
+    """``dense_small_readings`` held to the DENSE_* limits."""
+    out = dense_small_readings(device, mode, n, cfg)
     if out["ring_mean_median_px"] > DENSE_MEDIAN_PX or \
             out["ring_mean_p99_px"] > DENSE_P99_PX or \
             out["pixels_equal"] < DENSE_PIXEL_SHARE:
         raise AssertionError(f"{mode} on {device} vs CPU: {out}")
     return out
+
+
+# The card-vs-CPU check of the tiled warp: compare_dense_small's mode on
+# it. subtructAverageVector's colours are the angle and length of the flow
+# minus its frame mean, truncated to uint8: with the tiled engine's flow
+# bit-identical on the card and the CPU, 97.98% of its pixels were equal
+# (H100), under DENSE_PIXEL_SHARE, so that mode is read, not bounded, on
+# both engines (phase [7]).
+TILED_SMALL = ModeConfig(xdim=256, ydim=192, window_size=3,
+                         warp_impl="tiled")
 
 
 # ---------------------------------------------------------------------------
@@ -896,6 +1018,21 @@ def kernel_rows(device, launches, devs):
         r1cf, grid, mode="bilinear", padding_mode="zeros",
         align_corners=True), 100)
 
+    # K8 in its frame layout at level 0 of the tiled engine (640x480,
+    # subtract_average: tile (64, 256), bres 2), flows within +-12 px.
+    # Bytes: r1, the flow and the output once each; ops: the 4-tap sample
+    # of 5 channels (6 products and 3 sums each), the weights and the
+    # residual, ~50 per pixel. Its time is both passes (base sums and
+    # sampling), each call's device time summed.
+    counts8 = warp_kernel.frame_counts(h, w, 64, 256, device)
+    k8 = lambda: warp_kernel.warp_tiles(  # noqa: E731
+        r1, wflow, counts8, 64, 256, 2)
+    k8_ms, k8_wall = device_ms(k8, 100), wall_ms(k8, 100)
+    k8_plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
+        r1, wflow, counts8, 64, 256, 2), 5)
+    k8_bytes = h * w * (5 * 4 + 2 * 4 + 5 * 4)
+    k8_ops = h * w * 50
+
     def row(name, src, replaces, n, dev, ms, plain_ms, nbytes, ops, lib,
             wall):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -937,7 +1074,38 @@ def kernel_rows(device, launches, devs):
             "ripcurrents_tpu/flow/warp_pallas.py:89", launches["K7"],
             devs["k7_max"], k7_ms, k7_plain, k7_bytes, k7_ops, k7_lib,
             k7_wall),
+        # library: the same grid_sample as K7's, on the same inputs
+        row("warp_tiles", "ripcurrents_tpu_torch/csrc/warp_tiles.cu",
+            "tools/bench_warp_variants.py:500", launches["K8"],
+            devs["k8_max"], k8_ms, k8_plain, k8_bytes, k8_ops, k7_lib,
+            k8_wall),
     ]
+
+
+def bench_rows(device):
+    """Phase 8: bench_warp at both tool configurations (CUDA events over
+    back-to-back launches), with K8's device time (torch.profiler, both
+    passes), its bound (bytes: the table's 5 bf16 channels, the flow and
+    the f32 output once each) and its plain version's device time at the
+    same inputs."""
+    rows = []
+    for bres, sw in ((2, None), (1, 640)):
+        g = bench_warp.inputs(device, sw)
+        res = {v: bench_warp.run(v, bres, sw, g=g)
+               for v in bench_warp.VARIANTS}
+        px = g["hp"] * g["wp"]
+        k8_dev = device_ms(bench_warp.variant_fn("A", g, bres), 20)
+        plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
+            g["table"], g["flow"], g["counts"], g["th"], g["sw"], bres), 3)
+        rows.append({"bres": bres, "th": g["th"], "sw": g["sw"],
+                     "grid": g["grid"],
+                     "ms": {v: r["ms"] for v, r in res.items()},
+                     "checksum": {v: r["checksum"] for v, r in res.items()},
+                     "k8_device_ms": k8_dev,
+                     "k8_bound_ms": px * (5 * 2 + 2 * 4 + 5 * 4) /
+                     HBM_BYTES_PER_S * 1e3,
+                     "k8_plain_ms": plain})
+    return rows
 
 
 def main() -> int:
@@ -991,6 +1159,10 @@ def main() -> int:
     print(f"[2] K7 at 640x480, budget 16, flows up to +-24 px: {k7_devs}")
     print(f"[2] K7 at 75x107, budget 4, flows up to +-7 px: "
           f"{check_warp(75, 107, dev, budget=4, flow_px=7.0)}")
+    k8_devs = check_tiles(dev)
+    devs["k8_max"] = max(r["max"] for r in k8_devs.values())
+    for name, r in k8_devs.items():
+        print(f"[2] K8 {name}: {r}")
     lk_devs = check_lk(dev, 201, timeline=True)
     devs["k3_px_max"] = lk_devs["px_max"]
     print(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
@@ -1051,7 +1223,8 @@ def main() -> int:
                                       "timelinesOnSubtractAverageVector")
             else "subtract_average")().iterations
         want = {"K1": 3 * iters * n, "K2": 3 * iters * n, "K3": 0,
-                "K4": 2 * n, "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 0}
+                "K4": 2 * n, "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 0,
+                "K8": 0}
         print(f"[7] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}: "
               f"{m_ms:.3f} ms/frame (host clock), {m_ev:.3f} ms/frame (CUDA "
               f"events), {1e3 / m_ms:.1f} fps; launches {m_n}")
@@ -1066,14 +1239,36 @@ def main() -> int:
           f"clock), {p_ev:.3f} ms/frame (CUDA events); launches {p_n}, K7 "
           f"{p_n['K7'] / n} per frame")
     want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 3 * (n + 1),
-            "K6": 3 * (n + 1), "K7": 9 * n}
+            "K6": 3 * (n + 1), "K7": 9 * n, "K8": 0}
     if p_n != want:
         raise AssertionError(f"portable engine: expected launches {want}")
+    t_ms, t_ev, t_n, _ = run_dense_mode(dev, "subtructAverageVector", n,
+                                        ModeConfig(warp_impl="tiled"))
+    print(f"[7] subtructAverageVector 640x480 on the tiled warp "
+          f"(warp_impl='tiled'), {n} frames: {t_ms:.3f} ms/frame (host "
+          f"clock), {t_ev:.3f} ms/frame (CUDA events); launches {t_n}, K8 "
+          f"{t_n['K8'] / n} per frame")
+    want = dict(want, K7=0, K8=9 * n)
+    if t_n != want:
+        raise AssertionError(f"tiled warp: expected launches {want}")
     print(f"[7] subtructAverageVectorWithWindow 192x256 on the card vs on "
           f"the CPU: {compare_dense_small(dev)}")
+    print(f"[7] subtructAverageVectorWithWindow (warp_impl='tiled') "
+          f"192x256 on the card vs on the CPU: "
+          f"{compare_dense_small(dev, cfg=TILED_SMALL)}")
+    for impl in ("tiled", "fused"):
+        sav = dense_small_readings(dev, "subtructAverageVector", 3,
+                                   ModeConfig(xdim=256, ydim=192,
+                                              warp_impl=impl))
+        print(f"[7] subtructAverageVector (warp_impl={impl!r}) 192x256 on "
+              f"the card vs on the CPU (pixels read, not bounded): {sav}")
+        if sav["ring_mean_median_px"] > DENSE_MEDIAN_PX or \
+                sav["ring_mean_p99_px"] > DENSE_P99_PX:
+            raise AssertionError(f"subtructAverageVector ({impl}) on {dev} "
+                                 f"vs CPU: {sav}")
 
     launches = dict(zip(("K1", "K2", "K4", "K5", "K6"), launches),
-                    K3=tl_launches, K7=p_n["K7"])
+                    K3=tl_launches, K7=p_n["K7"], K8=t_n["K8"])
     rows = kernel_rows(dev, launches, devs)
     for r in rows:
         lib = r["library_ms"]
@@ -1082,6 +1277,16 @@ def main() -> int:
               f"with the host), plain {r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
               f"{'-' if lib is None else f'{lib * 1e3:.2f} us'}")
+    bench = bench_rows(dev)
+    for b in bench:
+        ms = "  ".join(f"{v} {t * 1e3:.2f} us" for v, t in b["ms"].items())
+        print(f"[8] bench_warp 1080x1920 bres {b['bres']} sw {b['sw']} (th "
+              f"{b['th']}, grid {b['grid'][0]}x{b['grid'][1]}): {ms}; K8 "
+              f"{b['k8_device_ms'] * 1e3:.2f} us on the device, bound "
+              f"{b['k8_bound_ms'] * 1e3:.2f} us (bytes), plain "
+              f"{b['k8_plain_ms'] * 1e3:.2f} us; checksums {b['checksum']}")
+    rows[-1]["ms_1080p_halo"] = {f"bres{b['bres']}_sw{b['sw']}":
+                                 b["k8_device_ms"] for b in bench}
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

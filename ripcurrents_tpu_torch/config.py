@@ -31,8 +31,19 @@ class FarnebackParams:
       clamped to +-warp_residual;
     - the portable engine, whose warp is 'gather' (exact bilinear, any
       displacement; also whenever warp_budget is None), 'shift' (the
-      shift decomposition, exact for |flow| <= warp_budget) or 'pallas'
-      (the same function as one hand-written kernel, K7).
+      shift decomposition, exact for |flow| <= warp_budget), 'pallas'
+      (the same function as one hand-written kernel, K7) or 'tiled' (the
+      fused engine's algebra on channels-last tables: a per-warp_tile
+      integer base, the rounded mean of the tile's flow clamped to
+      +-96 px, plus a per-pixel residual clamped to +-warp_residual;
+      unbounded smooth motion, exact within warp_residual px of the tile
+      mean; kernel K8).
+
+    poly_impl 'banded' computes each level's expansion straight from the
+    full-res frame through the composed banded matrices (kernels K5 and
+    K6, bf16 operands as the TPU rounds them); 'shifted' pre-smooths,
+    resizes and correlates as separate float32 passes of shifted slice
+    sums (plain PyTorch), the reference's sequence of operations.
     """
 
     pyr_scale: float = 0.5
@@ -52,6 +63,9 @@ class FarnebackParams:
     # (None = never override).
     warp_residual_hires: "int | Tuple[int, ...] | None" = (1, 1, 1)
     warp_hires_px: int = 1_000_000
+    # (th, tw) of the 'tiled' warp's base tiles; small levels shrink it
+    # (farneback._adaptive_tile).
+    warp_tile: Tuple[int, int] = (64, 256)
     # Subcolumn width of the warp base blocks (None = widest 128-multiple
     # <= 384 dividing the padded width).
     warp_subcol: "int | None" = None

@@ -13,11 +13,16 @@ Port of ``ripcurrents_tpu/flow/farneback.py``:
 - the fused engine (``warp_impl="fused"``): the per-level residual,
   subcolumn and iteration schedule of ``flow/fused_update.py``, with the
   flow kept in the padded (2, Hp, Wp) layout across levels;
-- the portable engine (``warp_impl`` "gather", "shift" or "pallas"):
-  ``update_matrices`` (the "shift" and "pallas" warps are kernel K7,
-  ``flow/warp_kernel.py``), the banded window blur ``_blur_m`` and the
-  2x2 solve ``_solve_flow`` as plain PyTorch, with channels-last flow
-  resized between levels.
+- the portable engine (``warp_impl`` "gather", "shift", "pallas" or
+  "tiled"): ``update_matrices`` (the "shift" and "pallas" warps are kernel
+  K7, the "tiled" warp kernel K8, both in ``flow/warp_kernel.py``), the
+  banded window blur ``_blur_m`` and the 2x2 solve ``_solve_flow`` as
+  plain PyTorch, with channels-last flow resized between levels;
+- ``poly_impl="shifted"``: the expansion as the reference sequences it
+  (reflect-101 Gaussian pre-smooth, pyramid resize, then the expansion
+  correlations as shifted slice sums), float32 plain PyTorch;
+- the stream entry points: ``farneback_stream`` and its chunked and
+  multi-stream forms, which loop over the single-stream engine.
 
 Conventions: images are (H, W) (uint8 or float), flow is (H, W, 2) with
 channel 0 = dx (columns) and channel 1 = dy (rows), as OpenCV.
@@ -29,13 +34,15 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ripcurrents_tpu_torch.config import FarnebackParams
 from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.fused_update import (HALO_X, HALO_Y,
                                                      _row_tile, fused_level,
                                                      prepare_expansions)
-from ripcurrents_tpu_torch.flow.warp_kernel import warp5_shift
+from ripcurrents_tpu_torch.flow.warp_kernel import (MAX_BASE, frame_counts,
+                                                    warp5_shift, warp_tiles)
 from ripcurrents_tpu_torch.ops.conv import gaussian_kernel
 from ripcurrents_tpu_torch.ops.image import (_linear_weights,
                                              resize_bilinear,
@@ -230,17 +237,17 @@ def _level_geometry(h: int, w: int, p: FarnebackParams, k: int):
     return scale, lh, lw, sigma, smooth_sz
 
 
-PORTABLE_WARPS = ("gather", "shift", "pallas")
+PORTABLE_WARPS = ("gather", "shift", "pallas", "tiled")
+POLY_IMPLS = ("banded", "shifted")
 
 
 def _check_params(p: FarnebackParams) -> None:
     if p.warp_impl not in ("fused",) + PORTABLE_WARPS or \
-            p.poly_impl != "banded":
+            p.poly_impl not in POLY_IMPLS:
         raise ValueError(
-            "the PyTorch port implements warp_impl 'fused', 'gather', "
-            "'shift' and 'pallas' with poly_impl 'banded'; the 'tiled' warp "
-            "and the 'shifted' expansion are later work (ROADMAP.md); got "
-            f"{p.warp_impl!r}, {p.poly_impl!r}")
+            f"unknown warp_impl {p.warp_impl!r} or poly_impl "
+            f"{p.poly_impl!r}: warp_impl is 'fused' or one of "
+            f"{PORTABLE_WARPS}, poly_impl one of {POLY_IMPLS}")
 
 
 def _prep_level_args(h: int, w: int, p: FarnebackParams, k: int) -> tuple:
@@ -260,24 +267,121 @@ def _prep_level_args(h: int, w: int, p: FarnebackParams, k: int) -> tuple:
             off)
 
 
+# ---------------------------------------------------------------------------
+# The "shifted" expansion: float32 shifted slice sums
+# ---------------------------------------------------------------------------
+
+def _corr1d_multi(img: torch.Tensor, kernels, axis: int) -> list:
+    """Correlate a 2-D image with several 1-D kernels along one axis,
+    replicate border, taps added in ascending order. Returns one (H, W)
+    tensor per kernel."""
+    n = (len(kernels[0]) - 1) // 2
+    length = img.shape[axis]
+    idx = torch.clamp(torch.arange(-n, length + n, device=img.device), 0,
+                      length - 1)
+    x = img.index_select(axis, idx)
+    outs = []
+    for k in kernels:
+        acc = None
+        for i, ki in enumerate(k):
+            term = x.narrow(axis, i, length) * float(ki)
+            acc = term if acc is None else acc + term
+        outs.append(acc)
+    return outs
+
+
+def poly_exp(img: torch.Tensor, n: int, sigma: float,
+             channels_first: bool = False,
+             impl: str = "shifted") -> torch.Tensor:
+    """Per-pixel quadratic expansion coefficients, channels [x, y, x^2,
+    y^2, xy], of one image (H, W): (H, W, 5), or (5, H, W) if
+    channels_first. Gaussian window half-size n. impl 'shifted': shifted
+    slice sums; 'banded': the 1-D correlations as banded float32
+    matmuls."""
+    g, xg, xxg, ig11, ig03, ig33, ig55 = _poly_exp_consts(n, sigma)
+    img = img.to(torch.float32)
+    if impl == "banded":
+        h, w = img.shape
+        dev = img.device
+
+        def band(size, k):
+            return _banded_replicate(size, tuple(float(v) for v in k), dev)
+
+        by3 = torch.cat([band(h, k) for k in (g, xg, xxg)], dim=1)
+        t = torch.einsum("sn,sw->nw", by3, img)
+        t0, t1, t2 = t[:h], t[h:2 * h], t[2 * h:]
+        tg = torch.einsum("sn,hs->hn", band(w, g), torch.cat([t0, t1, t2]))
+        b1, b3, b5 = tg[:h], tg[h:2 * h], tg[2 * h:]
+        txg = torch.einsum("sn,hs->hn", band(w, xg), torch.cat([t0, t1]))
+        b2, b6 = txg[:h], txg[h:]
+        b4 = torch.einsum("sn,hs->hn", band(w, xxg), t0)
+    elif impl == "shifted":
+        t0, t1, t2 = _corr1d_multi(img, [g, xg, xxg], axis=0)
+        b1, b2, b4 = _corr1d_multi(t0, [g, xg, xxg], axis=1)
+        b3, b6 = _corr1d_multi(t1, [g, xg], axis=1)
+        (b5,) = _corr1d_multi(t2, [g], axis=1)
+    else:
+        raise ValueError(f"unknown poly_exp impl {impl!r}")
+    return torch.stack([b2 * ig11, b3 * ig11,
+                        b1 * ig03 + b4 * ig33,
+                        b1 * ig03 + b5 * ig33,
+                        b6 * ig55], dim=0 if channels_first else -1)
+
+
+def _gauss_blur_reflect(img: torch.Tensor, k) -> torch.Tensor:
+    """Separable Gaussian blur with reflect-101 border (cv2 default): the
+    y pass over the padded width, then the x pass, taps in ascending
+    order."""
+    k = [float(v) for v in np.asarray(k, np.float32)]
+    n = (len(k) - 1) // 2
+    h, w = img.shape
+
+    def reflect(size):
+        i = torch.arange(-n, size + n, device=img.device).abs()
+        return torch.where(i > size - 1, 2 * (size - 1) - i, i)
+
+    x = img[reflect(h)][:, reflect(w)]
+    acc = None
+    for i, kv in enumerate(k):
+        t = x[i:i + h] * kv
+        acc = t if acc is None else acc + t
+    out = acc
+    acc = None
+    for i, kv in enumerate(k):
+        t = out[:, i:i + w] * kv
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def _precompute_level(f: torch.Tensor, h: int, w: int, p: FarnebackParams,
+                      k: int, cf: bool) -> torch.Tensor:
+    """Level k of ``farneback_precompute`` from the float32 frame f."""
+    _, lh, lw, sigma, smooth_sz = _level_geometry(h, w, p, k)
+    if p.poly_impl == "banded":
+        _, _, lh, lw, n, sig, ss, bs, ph, pw, off = _prep_level_args(h, w, p,
+                                                                     k)
+        return poly_exp_level(f, lh, lw, n, sig, ss, bs, channels_first=cf,
+                              pad_hw=(ph, pw), pad_off=off,
+                              out_dtype=torch.bfloat16 if cf else None)
+    kg = np.asarray(gaussian_kernel(smooth_sz, sigma), np.float32)
+    level_img = resize_bilinear(_gauss_blur_reflect(f, kg), (lh, lw))
+    return poly_exp(level_img, p.poly_n, p.poly_sigma, channels_first=cf,
+                    impl=p.poly_impl)
+
+
 def farneback_precompute(frame: torch.Tensor,
                          p: FarnebackParams) -> tuple[torch.Tensor, ...]:
-    """Per-level expansion tables of one frame, coarsest first: for the
-    fused engine (5, Hp + 2*HALO_Y, Wp + 2*HALO_X) bf16 with the level at
-    (HALO_Y, HALO_X); for the portable engine (lh, lw, 5) float32."""
+    """Per-level expansion tables of one frame, coarsest first. With
+    poly_impl 'banded', for the fused engine (5, Hp + 2*HALO_Y,
+    Wp + 2*HALO_X) bf16 with the level at (HALO_Y, HALO_X), for the
+    portable engine (lh, lw, 5) float32; with 'shifted', (5, lh, lw) or
+    (lh, lw, 5) float32 (the fused engine pads and casts it per level)."""
     _check_params(p)
     f = frame.to(torch.float32)
     h, w = f.shape
     cf = p.warp_impl == "fused"
-    out = []
-    for k in range(p.levels, -1, -1):
-        _, _, lh, lw, n, sig, ss, bs, ph, pw, off = _prep_level_args(h, w, p,
-                                                                     k)
-        out.append(poly_exp_level(f, lh, lw, n, sig, ss, bs,
-                                  channels_first=cf, pad_hw=(ph, pw),
-                                  pad_off=off,
-                                  out_dtype=torch.bfloat16 if cf else None))
-    return tuple(out)
+    return tuple(_precompute_level(f, h, w, p, k, cf)
+                 for k in range(p.levels, -1, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -337,18 +441,42 @@ def _warp5_shift_mask(h: int, w: int, flow: torch.Tensor, budget: int):
     return None, inside
 
 
+def _warp5_tiled(r1: torch.Tensor, flow: torch.Tensor, bres: int = 6,
+                 max_base: int = MAX_BASE, th: int = 64, tw: int = 256):
+    """The tiled base + residual warp of r1 (H, W, 5) by flow (H, W, 2),
+    kernel K8 in its frame layout: per (th, tw) tile the rounded mean of
+    the tile's real-pixel flow, clamped to +-max_base, is the base; each
+    pixel samples r1 (zero outside the frame) bilinearly at base + its
+    residual clamped to +-bres. Returns (samples, inside): inside is the
+    frame test of floor(x + flow) alone, with no residual test."""
+    h, w = r1.shape[0], r1.shape[1]
+    counts = frame_counts(h, w, th, tw, r1.device)
+    r1s = warp_tiles(r1.contiguous(), flow.contiguous(), counts, th, tw,
+                     bres, max_base)
+    ys, xs = _grid(h, w, flow.device)
+    x1 = torch.floor(xs + flow[..., 0])
+    y1 = torch.floor(ys + flow[..., 1])
+    inside = (x1 >= 0) & (y1 >= 0) & (x1 < w - 1) & (y1 < h - 1)
+    return r1s, inside
+
+
 def update_matrices(r0: torch.Tensor, r1: torch.Tensor, flow: torch.Tensor,
                     warp_budget: "int | None" = None,
-                    warp_impl: str = "shift") -> torch.Tensor:
+                    warp_impl: str = "shift", warp_residual: int = 6,
+                    warp_tile: tuple[int, int] = (64, 256)) -> torch.Tensor:
     """The per-pixel normal-equation channels M = (G11, G12, G22, h1, h2)
     (H, W, 5) from the expansions r0, r1 (H, W, 5) and the current flow
     (H, W, 2), r1 resampled at x + flow: by a gather when warp_budget is
-    None or warp_impl is 'gather', else by the shift decomposition, K7
-    ('shift' and 'pallas', the JAX package's XLA and Pallas forms of one
-    function, are both K7 here)."""
+    None or warp_impl is 'gather'; by the tiled warp K8 (base tiles
+    warp_tile, residual +-warp_residual) for 'tiled'; else by the shift
+    decomposition, K7 ('shift' and 'pallas', the JAX package's XLA and
+    Pallas forms of one function, are both K7 here)."""
     h, w = r0.shape[0], r0.shape[1]
     if warp_budget is None or warp_impl == "gather":
         r1s, inside = _warp5_gather(r1, flow)
+    elif warp_impl == "tiled":
+        r1s, inside = _warp5_tiled(r1, flow, bres=warp_residual,
+                                   th=warp_tile[0], tw=warp_tile[1])
     elif warp_impl in ("shift", "pallas"):
         r1s = warp5_shift(r1.contiguous(), flow.contiguous(), warp_budget)
         _, inside = _warp5_shift_mask(h, w, flow, warp_budget)
@@ -431,35 +559,53 @@ def _per_level(sched, k: int):
         else sched
 
 
-def farneback_from_expansions(e0, e1, hw: tuple[int, int],
-                              p: FarnebackParams) -> torch.Tensor:
-    """Dense flow (h, w, 2) from two frames' expansion tables."""
-    _check_params(p)
-    if p.warp_impl != "fused":
-        return _portable_from_expansions(e0, e1, hw, p)
-    h, w = hw
-    wr = p.warp_residual
-    subcol = p.warp_subcol
-    it_sched = None
+def _residual_schedule(h: int, w: int, p: FarnebackParams):
+    """(residual budget, iteration schedule) of a frame of h x w: the
+    hi-res overrides at >= warp_hires_px."""
+    wr, it_sched = p.warp_residual, None
     if h * w >= p.warp_hires_px:
         if p.warp_residual_hires is not None:
             wr = p.warp_residual_hires
-        if p.warp_subcol_hires is not None:
-            subcol = p.warp_subcol_hires
         it_sched = p.iters_hires
+    return wr, it_sched
+
+
+def _level_iters(p: FarnebackParams, it_sched, k: int) -> int:
+    """Iterations of level k: every level runs at least one (a schedule
+    entry of 0 would otherwise leave the level's flow unrefined)."""
+    return max(1, p.iterations if it_sched is None
+               else _per_level(it_sched, k))
+
+
+def farneback_from_expansions(e0, e1, hw: tuple[int, int],
+                              p: FarnebackParams,
+                              init_flow: "torch.Tensor | None" = None,
+                              channels_first: bool = False) -> torch.Tensor:
+    """Dense flow (h, w, 2), or (2, h, w) if channels_first, from two
+    frames' expansion tables. init_flow (h, w, 2), if given, is the
+    starting flow, resized and scaled to the coarsest level."""
+    _check_params(p)
+    if p.warp_impl != "fused":
+        flow = _portable_from_expansions(e0, e1, hw, p, init_flow)
+        return torch.movedim(flow, -1, 0) if channels_first else flow
+    h, w = hw
+    wr, it_sched = _residual_schedule(h, w, p)
+    subcol = p.warp_subcol
+    if h * w >= p.warp_hires_px and p.warp_subcol_hires is not None:
+        subcol = p.warp_subcol_hires
     flow = None
     prev_true = None
     for idx, k in enumerate(range(p.levels, -1, -1)):
-        _, lh, lw, _, _ = _level_geometry(h, w, p, k)
+        scale, lh, lw, _, _ = _level_geometry(h, w, p, k)
         bres_k = _per_level(wr, k)
-        iters_k = p.iterations if it_sched is None \
-            else _per_level(it_sched, k)
-        # Every level runs at least one iteration (a schedule entry of 0
-        # would otherwise leave the level's flow unrefined).
-        iters_k = max(1, iters_k)
+        iters_k = _level_iters(p, it_sched, k)
         th = _row_tile(lh)
         hp, wp = -(-lh // th) * th, -(-lw // 128) * 128
-        if flow is None:
+        if flow is None and init_flow is not None:
+            f0 = torch.movedim(resize_bilinear(
+                init_flow.to(torch.float32), (lh, lw)) * scale, -1, 0)
+            flow = F.pad(f0, (0, wp - lw, 0, hp - lh)).contiguous()
+        elif flow is None:
             flow = torch.zeros((2, hp, wp), dtype=torch.float32,
                                device=e0[idx].device)
         else:
@@ -472,49 +618,134 @@ def farneback_from_expansions(e0, e1, hw: tuple[int, int],
                                   subcol=subcol)
         flow = fused_level(prep, flow, p.winsize, p.gaussian, bres_k,
                            iters_k)
-    return torch.movedim(flow[:, :h, :w], 0, -1)
+    out = flow[:, :h, :w]
+    return out if channels_first else torch.movedim(out, 0, -1)
+
+
+def _adaptive_tile(lh: int, lw: int,
+                   tile: tuple[int, int]) -> tuple[int, int]:
+    """Shrink the tiled warp's base tile for small level images so the
+    tile-mean base stays locally representative (>= ~4 tile rows, 2 tile
+    columns); rows stay a multiple of 8 and columns of 128."""
+    th, tw = tile
+    th = min(th, max(8, (lh // 4) // 8 * 8))
+    tw = min(tw, max(128, (lw // 2) // 128 * 128))
+    return th, tw
 
 
 def _portable_from_expansions(e0, e1, hw: tuple[int, int],
-                              p: FarnebackParams) -> torch.Tensor:
+                              p: FarnebackParams,
+                              init_flow: "torch.Tensor | None" = None
+                              ) -> torch.Tensor:
     """The portable engine's pyramid loop: flow at its true (lh, lw, 2)
     shape, resized by 1/pyr_scale between levels; per level the update,
-    then iterations x (blur, solve), updating again between them."""
+    then iterations x (blur, solve), updating again between them. The
+    tiled warp takes each level's residual budget from warp_residual
+    (warp_residual_hires at >= warp_hires_px) and its tile from
+    ``_adaptive_tile``."""
     h, w = hw
-    it_sched = p.iters_hires if h * w >= p.warp_hires_px else None
+    wr, it_sched = _residual_schedule(h, w, p)
     flow = None
     for idx, k in enumerate(range(p.levels, -1, -1)):
-        _, lh, lw, _, _ = _level_geometry(h, w, p, k)
-        iters_k = p.iterations if it_sched is None \
-            else _per_level(it_sched, k)
-        iters_k = max(1, iters_k)
+        scale, lh, lw, _, _ = _level_geometry(h, w, p, k)
+        bres_k = _per_level(wr, k)
+        iters_k = _level_iters(p, it_sched, k)
         r0, r1 = e0[idx], e1[idx]
-        if flow is None:
+        if flow is None and init_flow is not None:
+            flow = resize_bilinear(init_flow.to(torch.float32),
+                                   (lh, lw)) * scale
+        elif flow is None:
             flow = torch.zeros((lh, lw, 2), dtype=torch.float32,
                                device=r0.device)
         else:
             flow = resize_bilinear(flow, (lh, lw)) * (1.0 / p.pyr_scale)
-        m = update_matrices(r0, r1, flow, p.warp_budget, p.warp_impl)
+        tile = _adaptive_tile(lh, lw, p.warp_tile)
+        m = update_matrices(r0, r1, flow, p.warp_budget, p.warp_impl,
+                            bres_k, tile)
         for i in range(iters_k):
             flow = _solve_flow(_blur_m(m, p.winsize, p.gaussian))
             if i < iters_k - 1:
                 m = update_matrices(r0, r1, flow, p.warp_budget,
-                                    p.warp_impl)
+                                    p.warp_impl, bres_k, tile)
     return flow
 
 
-def farneback(prev: torch.Tensor, nxt: torch.Tensor,
-              p: FarnebackParams) -> torch.Tensor:
-    """Dense flow from `prev` to `nxt`: (H, W) -> (H, W, 2) float32."""
+def farneback(prev: torch.Tensor, nxt: torch.Tensor, p: FarnebackParams,
+              init_flow: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Dense flow from `prev` to `nxt`: (H, W) -> (H, W, 2) float32,
+    starting from init_flow (H, W, 2) if given."""
     return farneback_from_expansions(farneback_precompute(prev, p),
                                      farneback_precompute(nxt, p),
-                                     tuple(prev.shape), p)
+                                     tuple(prev.shape), p, init_flow)
 
 
-def farneback_stream(prev_exp, nxt: torch.Tensor, p: FarnebackParams):
+def farneback_stream(prev_exp, nxt: torch.Tensor, p: FarnebackParams,
+                     init_flow: "torch.Tensor | None" = None,
+                     channels_first: bool = False):
     """Streaming step: (previous frame's expansions, next frame) ->
     (flow, next frame's expansions). Carrying the expansions expands each
-    frame once per stream."""
+    frame once per stream. channels_first=True returns flow as
+    (2, h, w)."""
     nxt_exp = farneback_precompute(nxt, p)
-    flow = farneback_from_expansions(prev_exp, nxt_exp, tuple(nxt.shape), p)
+    flow = farneback_from_expansions(prev_exp, nxt_exp, tuple(nxt.shape), p,
+                                     init_flow, channels_first)
     return flow, nxt_exp
+
+
+def farneback_stream_chunk(prev_exp, frames: torch.Tensor,
+                           p: FarnebackParams,
+                           channels_first: bool = False):
+    """Chunked streaming step: (expansions of frame t, frames t+1..t+B as
+    (B, h, w)) -> (the B flows stacked, (B, h, w, 2) or (B, 2, h, w),
+    expansions of frame t+B). The pair flows of one stream share only
+    expansions, so this equals B ``farneback_stream`` steps."""
+    hw = tuple(frames.shape[1:])
+    flows = []
+    exp = prev_exp
+    for f in frames:
+        nxt = farneback_precompute(f, p)
+        flows.append(farneback_from_expansions(exp, nxt, hw, p, None,
+                                               channels_first))
+        exp = nxt
+    return torch.stack(flows), exp
+
+
+def _stack(items: list):
+    """torch.stack over a list of like trees of tensors (tensors, tuples,
+    named tuples, lists, dicts)."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items)
+    if isinstance(first, dict):
+        return {k: _stack([it[k] for it in items]) for k in first}
+    parts = [_stack(list(col)) for col in zip(*items)]
+    return type(first)(*parts) if hasattr(first, "_fields") \
+        else type(first)(parts)
+
+
+def farneback_stream_multi(prev_exps, frames: torch.Tensor,
+                           p: FarnebackParams, channels_first: bool = False,
+                           consume=None, frame_map=None):
+    """Multi-stream step: N independent streams advanced F frames each.
+    prev_exps is the per-stream expansion carry stacked on a leading
+    stream axis (each level's table (N, ...)); frames is (N, F, h, w).
+    Returns (flows, new_exps): flows (N, F, h, w, 2) (or (N, F, 2, h, w)
+    channels_first), or with `consume` (a per-frame reducer of the flow)
+    its results stacked to (N, F, ...) instead; new_exps stacked like
+    prev_exps. `frame_map`, if given, transforms each frame just before
+    the engine. The streams run one after another through the
+    single-stream engine, so every result equals stepping each stream by
+    hand."""
+    flows, new_exps = [], []
+    for s in range(frames.shape[0]):
+        exp = tuple(x[s] for x in prev_exps)
+        outs = []
+        for f in frames[s]:
+            if frame_map is not None:
+                f = frame_map(f)
+            fl, exp = farneback_stream(exp, f, p,
+                                       channels_first=channels_first)
+            outs.append(fl if consume is None else consume(fl))
+        flows.append(_stack(outs))
+        new_exps.append(exp)
+    return _stack(flows), _stack(new_exps)

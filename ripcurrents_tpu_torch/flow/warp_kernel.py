@@ -1,5 +1,8 @@
-"""The standalone warp of the portable Farneback engine: kernel K7, its
-wrapper and its plain PyTorch version.
+"""The standalone warps: kernels K7 and K8, their wrappers and their
+plain PyTorch versions.
+
+K7
+--
 
 Port of ``ripcurrents_tpu/flow/warp_pallas.py: warp5_shift_pallas``, the
 ``warp_impl="pallas"`` branch of ``update_matrices``. It computes the
@@ -19,13 +22,48 @@ pixels with ``_warp5_shift_mask``.
 
 On CUDA tensors ``warp5_shift`` launches K7 once (counted in
 ``warp5_shift.launches``); on CPU tensors it runs ``warp5_shift_plain``.
+
+K8
+--
+Port of the TPU kernel of ``tools/bench_warp_variants.py: run``, the
+fused engine's warp stage ``ripcurrents_tpu/flow/fused_update.py:
+_warp_subcols`` run alone, and of the same algebra in the portable
+engine's tiled warp, ``ripcurrents_tpu/flow/farneback.py: _warp5_tiled``.
+Per tile of (th, tw) pixels the integer base is the rounded mean of the
+tile's real-pixel flow (summed in float64, divided in float32, rounded
+half to even), clamped; each pixel's residual flow - base is clamped to
++-bres and the 5-channel table is read bilinearly at pixel + base +
+residual (weights w0 = 1 - frac, w1 = 1 - w0; the TPU's (2*bres+1)^2-tap
+sum has no other nonzero terms). Reads outside the table are 0. Two
+layouts, told apart by the table's dtype:
+
+- bf16: the fused engine's halo'd table (5, hp + 2*HALO_Y, wp + 2*HALO_X)
+  with the frame at (HALO_Y, HALO_X), flow (2, hp, wp) with zero pads,
+  counts (hp / th, wp / tw), base clamped to +-(HALO - bres - 1)
+  -> (5, hp, wp) f32 (``_warp_subcols``);
+- float32: a channels-last table (h, w, 5), flow (h, w, 2), counts
+  (ceil(h / th), ceil(w / tw)) (``frame_counts``), base clamped to
+  +-max_base -> (h, w, 5) f32 (``_warp5_tiled``).
+
+``warp_tiles`` launches K8 on CUDA tensors (counted in
+``warp_tiles.launches``) and runs ``warp_tiles_plain`` on CPU tensors;
+``warp_tiles_nobase`` is the bf16 layout with base 0 (the tool's variant
+"Z", the floor of the tap stream), a separate instance of the kernel.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ripcurrents_tpu_torch import kernels
+from ripcurrents_tpu_torch.flow.fused_update import HALO_X, HALO_Y
+
+# Base clamp of the frame layout (the JAX _warp5_tiled's max_base).
+MAX_BASE = 96
 
 
 def _hat(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -92,3 +130,204 @@ def warp5_shift(r1: torch.Tensor, flow: torch.Tensor,
 
 
 warp5_shift.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the tiled base + residual warp
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def frame_counts(h: int, w: int, th: int, tw: int,
+                 device: torch.device) -> torch.Tensor:
+    """Real-pixel count (>= 1) of every (th, tw) tile of an (h, w) frame:
+    (ceil(h / th), ceil(w / tw)) float32 on `device`."""
+    y0 = np.arange(-(-h // th)) * th
+    x0 = np.arange(-(-w // tw)) * tw
+    rows = np.minimum(y0 + th, h) - y0
+    cols = np.minimum(x0 + tw, w) - x0
+    counts = np.maximum(rows[:, None] * cols[None, :], 1)
+    return torch.from_numpy(counts.astype(np.float32)).to(device)
+
+
+def _split_rows(th: int, tw: int) -> int:
+    """Rows per slab of the base pass: ~2048 pixels per block, at most 64
+    slabs per tile."""
+    rows = max(1, 2048 // tw)
+    return max(rows, -(-th // 64))
+
+
+def tile_bases_plain(flow_cf: torch.Tensor, counts: torch.Tensor, th: int,
+                     tw: int, lim_x: int, lim_y: int) -> torch.Tensor:
+    """The integer base of every tile: flow_cf (2, FH, FW), zero beyond
+    it up to whole tiles, -> (2, nty, ntx) float32 (x, y)."""
+    nty, ntx = counts.shape
+    _, fh, fw = flow_cf.shape
+    f = F.pad(flow_cf.double(), (0, ntx * tw - fw, 0, nty * th - fh))
+    sums = f.reshape(2, nty, th, ntx, tw).sum(dim=(2, 4))
+    q = torch.round(sums.float() / counts)          # half to even
+    lim = torch.tensor([lim_x, lim_y], dtype=torch.float32,
+                       device=flow_cf.device)[:, None, None]
+    return torch.minimum(torch.maximum(q, -lim), lim)
+
+
+def _sample_plain(table_cf: torch.Tensor, origin: tuple[int, int],
+                  flow_cf: torch.Tensor, base, th: int, tw: int, bres: int,
+                  out_hw: tuple[int, int]) -> torch.Tensor:
+    """The bilinear read of table_cf (5, TR, TC) (0 outside it; pixel
+    (0, 0) at `origin`) at pixel + base + clamped residual for the
+    out_hw pixels of flow_cf (2, FH, FW); base (2, nty, ntx) or None (0)
+    -> (5, oh, ow) float32."""
+    oh, ow = out_hw
+    dev = flow_cf.device
+    dx, dy = flow_cf[0, :oh, :ow], flow_cf[1, :oh, :ow]
+    if base is None:
+        bx = by = torch.zeros_like(dx)
+    else:
+        full = base.repeat_interleave(th, dim=1).repeat_interleave(tw, dim=2)
+        bx, by = full[0, :oh, :ow], full[1, :oh, :ow]
+    rx = torch.clamp(dx - bx, -float(bres), float(bres))
+    ry = torch.clamp(dy - by, -float(bres), float(bres))
+    flx, fly = torch.floor(rx), torch.floor(ry)
+    wx0 = 1.0 - (rx - flx)
+    wx1 = 1.0 - wx0
+    wy0 = 1.0 - (ry - fly)
+    wy1 = 1.0 - wy0
+    tr, tc = table_cf.shape[1], table_cf.shape[2]
+    r0 = (torch.arange(oh, device=dev)[:, None] + origin[0] + by.long() +
+          fly.long())
+    c0 = (torch.arange(ow, device=dev)[None, :] + origin[1] + bx.long() +
+          flx.long())
+    tab = table_cf.to(torch.float32)
+
+    def tap(i, j):
+        r, c = r0 + i, c0 + j
+        inb = (r >= 0) & (r < tr) & (c >= 0) & (c < tc)
+        v = tab[:, r.clamp(0, tr - 1), c.clamp(0, tc - 1)]
+        return torch.where(inb, v, 0.0)
+
+    a = wx0 * tap(0, 0) + wx1 * tap(0, 1)
+    b = wx0 * tap(1, 0) + wx1 * tap(1, 1)
+    return wy0 * a + wy1 * b
+
+
+def _check_tiles(table, flow, counts, th, tw, bres, max_base):
+    """Validate K8's inputs; -> (halo layout?, geometry)."""
+    dev = flow.device
+    if table.dtype == torch.bfloat16:
+        if table.dim() != 3 or flow.dim() != 3:
+            raise ValueError("halo layout: table (5, Hp+2*HALO_Y, "
+                             "Wp+2*HALO_X) and flow (2, Hp, Wp)")
+        hp, wp = flow.shape[1], flow.shape[2]
+        want = {"table": (table, torch.bfloat16,
+                          (5, hp + 2 * HALO_Y, wp + 2 * HALO_X)),
+                "flow": (flow, torch.float32, (2, hp, wp))}
+        if counts is not None:
+            want["counts"] = (counts, torch.float32,
+                              (hp // max(th, 1), wp // max(tw, 1)))
+        bad_geom = (th < 1 or tw < 1 or hp % th or wp % tw or
+                    not 0 <= bres < HALO_Y - 1)
+        geom = (hp, wp)
+    else:
+        if table.dim() != 3 or flow.dim() != 3:
+            raise ValueError("frame layout: table (h, w, 5), flow (h, w, 2)")
+        h, w = table.shape[0], table.shape[1]
+        want = {"table": (table, torch.float32, (h, w, 5)),
+                "flow": (flow, torch.float32, (h, w, 2)),
+                "counts": (counts, torch.float32,
+                           (-(-h // max(th, 1)), -(-w // max(tw, 1))))}
+        bad_geom = th < 1 or tw < 1 or bres < 0 or max_base < 0
+        geom = (h, w)
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+                not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name}: expected contiguous {dtype} "
+                             f"{tuple(shape)} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if bad_geom:
+        raise ValueError(f"bad geometry: {tuple(flow.shape)} tile "
+                         f"{(th, tw)} bres {bres} max_base {max_base}")
+    return table.dtype == torch.bfloat16, geom
+
+
+def warp_tiles_plain(table: torch.Tensor, flow: torch.Tensor,
+                     counts: torch.Tensor, th: int, tw: int, bres: int,
+                     max_base: int = MAX_BASE) -> torch.Tensor:
+    """Plain PyTorch version of K8 (same roundings), either layout."""
+    if table.dtype == torch.bfloat16:
+        hp, wp = flow.shape[1], flow.shape[2]
+        base = tile_bases_plain(flow, counts, th, tw, HALO_X - bres - 1,
+                                HALO_Y - bres - 1)
+        return _sample_plain(table, (HALO_Y, HALO_X), flow, base, th, tw,
+                             bres, (hp, wp))
+    h, w = table.shape[0], table.shape[1]
+    flow_cf = flow.permute(2, 0, 1)
+    base = tile_bases_plain(flow_cf, counts, th, tw, max_base, max_base)
+    out = _sample_plain(table.permute(2, 0, 1), (0, 0), flow_cf, base, th,
+                        tw, bres, (h, w))
+    return out.permute(1, 2, 0).contiguous()
+
+
+def warp_tiles(table: torch.Tensor, flow: torch.Tensor,
+               counts: torch.Tensor, th: int, tw: int, bres: int,
+               max_base: int = MAX_BASE) -> torch.Tensor:
+    """K8: the tiled base + residual warp of `table` by `flow` -> the
+    samples, float32, in the table's layout (see the module docstring)."""
+    halo, (gh, gw) = _check_tiles(table, flow, counts, th, tw, bres,
+                                  max_base)
+    dev = flow.device
+    if not kernels.launches_on(dev):
+        return warp_tiles_plain(table, flow, counts, th, tw, bres, max_base)
+    rows = _split_rows(th, tw)
+    part = torch.empty((counts.numel() * -(-th // rows), 2),
+                       dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if halo:
+        out = torch.empty((5, gh, gw), dtype=torch.float32, device=dev)
+        err = kernels.entry("warp_tiles_halo")(
+            table.data_ptr(), flow.data_ptr(), counts.data_ptr(),
+            part.data_ptr(), out.data_ptr(), gh, gw, th, tw, bres, rows,
+            stream)
+    else:
+        out = torch.empty((gh, gw, 5), dtype=torch.float32, device=dev)
+        err = kernels.entry("warp_tiles_frame")(
+            table.data_ptr(), flow.data_ptr(), counts.data_ptr(),
+            part.data_ptr(), out.data_ptr(), gh, gw, th, tw, bres, max_base,
+            rows, stream)
+    kernels.check(err, "warp_tiles")
+    warp_tiles.launches += 1
+    return out
+
+
+warp_tiles.launches = 0
+
+
+def warp_tiles_nobase_plain(table: torch.Tensor, flow: torch.Tensor,
+                            th: int, tw: int, bres: int) -> torch.Tensor:
+    """Plain PyTorch version of ``warp_tiles_nobase``."""
+    hp, wp = flow.shape[1], flow.shape[2]
+    return _sample_plain(table, (HALO_Y, HALO_X), flow, None, th, tw, bres,
+                         (hp, wp))
+
+
+def warp_tiles_nobase(table: torch.Tensor, flow: torch.Tensor, th: int,
+                      tw: int, bres: int) -> torch.Tensor:
+    """K8's halo layout with base 0 and no base pass: the taps and weights
+    alone at residual clamp(flow, +-bres) (the tool's floor, variant "Z").
+    table (5, hp + 2*HALO_Y, wp + 2*HALO_X) bf16, flow (2, hp, wp) f32
+    -> (5, hp, wp) f32."""
+    if table.dtype != torch.bfloat16:
+        raise ValueError(f"table: expected bfloat16, got {table.dtype}")
+    _, (hp, wp) = _check_tiles(table, flow, None, th, tw, bres, 0)
+    dev = flow.device
+    if not kernels.launches_on(dev):
+        return warp_tiles_nobase_plain(table, flow, th, tw, bres)
+    out = torch.empty((5, hp, wp), dtype=torch.float32, device=dev)
+    err = kernels.entry("warp_tiles_halo_nobase")(
+        table.data_ptr(), flow.data_ptr(), out.data_ptr(), hp, wp, th, tw,
+        bres, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "warp_tiles_nobase")
+    warp_tiles_nobase.launches += 1
+    return out
+
+
+warp_tiles_nobase.launches = 0

@@ -36,24 +36,35 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# source stem -> (C entry point, argtypes)
+# entry -> (source stem, C entry point, argtypes)
 _ENTRIES = {
-    "farneback_update": ("farneback_update_launch",
+    "farneback_update": ("farneback_update", "farneback_update_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P]),
-    "farneback_blur_solve": ("farneback_blur_solve_launch",
+    "farneback_blur_solve": ("farneback_blur_solve",
+                             "farneback_blur_solve_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "lk_track": ("lk_track_launch",
+    "lk_track": ("lk_track", "lk_track_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                   _F, _F, _P]),
-    "resize_cf_padded": ("resize_cf_padded_launch",
+    "resize_cf_padded": ("resize_cf_padded", "resize_cf_padded_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "prep_y": ("prep_y_launch", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "prep_x3": ("prep_x3_launch",
+    "prep_y": ("prep_y", "prep_y_launch",
+               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "prep_x3": ("prep_x3", "prep_x3_launch",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
                  _P]),
-    "warp5_shift": ("warp5_shift_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "warp5_shift": ("warp5_shift", "warp5_shift_launch",
+                    [_P, _P, _P, _I, _I, _I, _P]),
+    "warp_tiles_halo": ("warp_tiles", "warp_tiles_halo_launch",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "warp_tiles_halo_nobase": ("warp_tiles", "warp_tiles_halo_nobase_launch",
+                               [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "warp_tiles_frame": ("warp_tiles", "warp_tiles_frame_launch",
+                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P]),
 }
+_STEMS = tuple(dict.fromkeys(stem for stem, _, _ in _ENTRIES.values()))
 
 
 def _nvcc() -> str:
@@ -80,7 +91,7 @@ def build() -> dict[str, str]:
     raises with the compiler output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for stem in _ENTRIES:
+    for stem in _STEMS:
         out = _lib_path(stem)
         if out.exists():
             continue
@@ -107,19 +118,20 @@ def build() -> dict[str, str]:
 @functools.lru_cache(maxsize=1)
 def _libs() -> dict:
     build()
+    libs = {stem: ctypes.CDLL(str(_lib_path(stem))) for stem in _STEMS}
     fns = {}
-    for stem, (name, argtypes) in _ENTRIES.items():
-        lib = ctypes.CDLL(str(_lib_path(stem)))
-        fn = getattr(lib, name)
+    for key, (stem, name, argtypes) in _ENTRIES.items():
+        fn = getattr(libs[stem], name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        fns[stem] = (lib, fn)
+        fns[key] = (libs[stem], fn)
     return fns
 
 
-def entry(stem: str):
-    """The loaded C launch function of one kernel (builds on first use)."""
-    return _libs()[stem][1]
+def entry(name: str):
+    """The loaded C launch function `name` of ``_ENTRIES`` (builds every
+    kernel on first use)."""
+    return _libs()[name][1]
 
 
 def launches_on(device: torch.device) -> bool:

@@ -5,12 +5,13 @@ Drives one registered mode (``legacy`` by default; ``--mode timelines``,
 640x480 over synthetic 1280x720 frames (the chip_smoke.py main paths),
 traces a window of warm frames with ``torch.profiler`` and prints, per
 frame: host wall time, device kernel time, the device's busy share,
-launches (all kernels, and each of K1-K7), and the kernels that take the
-most device time. ``--warp-impl pallas`` runs a Farneback mode on the
-portable engine. Run from the repository root on a machine with a card:
+launches (all kernels, and each of K1-K8), and the kernels that take the
+most device time. ``--warp-impl pallas`` (or ``tiled``) runs a Farneback
+mode on the portable engine. Run from the repository root on a machine
+with a card:
 
     python -m ripcurrents_tpu_torch.trace_legacy [--mode legacy]
-        [--warp-impl pallas] [--frames 20] [--traced 10]
+        [--warp-impl pallas|tiled] [--frames 20] [--traced 10]
 """
 
 from __future__ import annotations
@@ -25,18 +26,18 @@ from torch.profiler import ProfilerActivity, profile
 from ripcurrents_tpu_torch.flow import fused_update as fu
 from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.lk_kernel import lk_track
-from ripcurrents_tpu_torch.flow.warp_kernel import warp5_shift
+from ripcurrents_tpu_torch.flow.warp_kernel import warp5_shift, warp_tiles
 from ripcurrents_tpu_torch.ops.image import resize_bilinear_cf_padded
 from ripcurrents_tpu_torch.pipelines import runner
 from ripcurrents_tpu_torch.pipelines.common import ModeConfig
 from ripcurrents_tpu_torch.synthetic import moving_frames
 
-# The wrappers of the seven kernels; each counts its launches in its
+# The wrappers of the eight kernels; each counts its launches in its
 # `launches` attribute.
 COUNTERS = {"K1": fu.farneback_update, "K2": fu.farneback_blur_solve,
             "K3": lk_track, "K4": resize_bilinear_cf_padded,
             "K5": prep_kernel.prep_y, "K6": prep_kernel.prep_x3,
-            "K7": warp5_shift}
+            "K7": warp5_shift, "K8": warp_tiles}
 
 
 def reset_launches() -> None:
@@ -53,7 +54,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--mode", default="legacy", choices=sorted(runner.MODES))
     ap.add_argument("--warp-impl", default=None,
-                    choices=["fused", "gather", "shift", "pallas"],
+                    choices=["fused", "gather", "shift", "pallas", "tiled"],
                     help="the Farneback warp (default: the mode's preset)")
     ap.add_argument("--frames", type=int, default=20,
                     help="warm-up frames before the traced window")
@@ -102,8 +103,8 @@ def main() -> None:
         "device_kernel_ms_per_frame": dev_ms,
         "device_busy_share_untraced": dev_ms / plain_ms,
         "device_launches_per_frame": len(kernels) / args.traced,
-        "k1_to_k7_launches_per_frame": [
-            n / args.traced for n in launch_counts().values()],
+        "kernel_launches_per_frame": {
+            k: n / args.traced for k, n in launch_counts().items()},
         "top_kernels_us_per_frame": [
             {"name": k[:80], "us": v[0] / args.traced,
              "launches": v[1] / args.traced} for k, v in top],

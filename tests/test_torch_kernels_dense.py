@@ -1,7 +1,7 @@
-"""The Hopper kernels K5 (prep_y), K6 (prep_x3) and K7 (warp5_shift)
-against their plain PyTorch versions, and the dense Farneback modes, on
-the card. These are the checks chip_smoke.py runs (its check functions,
-its tolerances: K5, K6 and K7 bit for bit). Without a card every test
+"""The Hopper kernels K5 (prep_y), K6 (prep_x3), K7 (warp5_shift) and K8
+(warp_tiles) against their plain PyTorch versions, and the dense
+Farneback modes, on the card. These are the checks chip_smoke.py runs
+(its check functions, its tolerances: K5-K8 bit for bit). Without a card every test
 skips: a CUDA kernel has no CPU interpret mode, and the CPU tests hold the
 plain versions to the JAX kernels instead."""
 
@@ -67,7 +67,35 @@ def test_portable_engine_launches_the_warp_kernel(card):
         card, "subtructAverageVector", n,
         ModeConfig(xdim=320, ydim=240, warp_impl="pallas"), raw_hw=(360, 640))
     assert launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
-                        "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 9 * n}
+                        "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 9 * n,
+                        "K8": 0}
+
+
+def test_warp_tiles_kernel_matches_plain_version(card):
+    """K8 in its halo layout at 1080p (both bench_warp configurations, and
+    its no-base instance) and its frame layout at 640x480."""
+    cs = _chip_smoke()
+    devs = cs.check_tiles(card)
+    assert max(max(r["max"], r.get("nobase_max", 0.0))
+               for r in devs.values()) <= cs.TILES_TOL
+
+
+def test_tiled_engine_launches_k8_and_matches_cpu(card):
+    """subtructAverageVector on the tiled warp: K8 9 times a frame, K5 and
+    K6 3 times, nothing else; at 192x256 the tiled engine's windowed mode
+    on the card agrees with the CPU."""
+    n = 4
+    cs = _chip_smoke()
+    _, _, launches, _ = cs.run_dense_mode(
+        card, "subtructAverageVector", n,
+        ModeConfig(xdim=320, ydim=240, warp_impl="tiled"), raw_hw=(360, 640))
+    assert launches == {"K1": 0, "K2": 0, "K3": 0, "K4": 0,
+                        "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 0,
+                        "K8": 9 * n}
+    out = cs.compare_dense_small(card, cfg=cs.TILED_SMALL)
+    assert out["ring_mean_median_px"] <= cs.DENSE_MEDIAN_PX
+    assert out["ring_mean_p99_px"] <= cs.DENSE_P99_PX
+    assert out["pixels_equal"] >= cs.DENSE_PIXEL_SHARE
 
 
 @pytest.mark.parametrize("mode", ["subtructAverageVectorWithWindow",

@@ -175,4 +175,4 @@ def test_port_imports_no_jax():
     assert {f"ripcurrents_tpu_torch.{m}" for m in (
         "flow.prep_kernel", "flow.warp_kernel", "analysis.meanflow",
         "analysis.shear", "viz.color", "viz.draw", "pipelines.modes",
-        "convert", "trace_legacy")} <= mods
+        "convert", "trace_legacy", "bench_warp")} <= mods
