@@ -10,16 +10,21 @@ CUDA toolkit:
 Every phase passes or raises (the script catches nothing):
 
 1. the card's name and power limit; build the eight kernels of ``csrc/``
-   with nvcc for sm_90a and print the build time and the ptxas report;
+   with nvcc for sm_90a and print the build time, the ptxas report and
+   how many K1 clusters of each size the card holds at once;
 2. K1 (farneback_update), K2 (farneback_blur_solve) and the level loop
    against their plain versions on the card, at the main path's shapes:
    640x480 level 0 of the legacy preset (table (5, 544, 896) bf16, bres 4,
    128-wide subcolumns, box 3) and 1080p level 0 of the windowed preset
-   (bres 1, 640-wide subcolumns, Gaussian 10); K4 (resize_cf_padded)
+   (bres 1, 640-wide subcolumns, Gaussian 10); K1 at every level of the
+   legacy and dense-mode 640x480 pyramids and of the 1080p windowed one,
+   with its cluster size S, CTAs, device time (median of 50 launches) and
+   bound per level and its device time per frame; K4 (resize_cf_padded)
    against its plain version and the dense two-matmul form at every level
    change of both; K3 (lk_track) against its plain version at 640x480
    with 201 points, 1280 points and 2 streams x 201 points, border and
-   out-of-image points included; K5 (prep_y) and K6 (prep_x3) against
+   out-of-image points included, and on one level with points that move
+   past its J patch's margin; K5 (prep_y) and K6 (prep_x3) against
    their plain versions and the dense matmul form at every level of the
    640x480 legacy and 1080p windowed tables and of the 640x480
    channels-last tables of the portable engine; K7 (warp5_shift) against
@@ -37,7 +42,9 @@ Every phase passes or raises (the script catches nothing):
 4. the windowed Farneback stream at 1920x1080;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
    version, its bound and a library call, as one JSON line (K8 in its
-   frame layout, the tiled engine's level 0);
+   frame layout, the tiled engine's level 0); K3 as the median and spread
+   of 30 launches at 201 vertices and at 1280 points, with its longest
+   per-point chain of iterations and a latency row beside its bound;
 6. the particle modes through ``run_frames`` at 640x480 from 1280x720
    frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
    ``streaklines`` (1280 vertices), ``populationMap`` and
@@ -51,7 +58,9 @@ Every phase passes or raises (the script catches nothing):
    (``warp_impl="tiled"``: K8 9 times per frame); then
    ``subtructAverageVectorWithWindow`` on the fused engine and on the
    tiled warp at 192x256 on the card against the same steps on the CPU,
-   and ``subtructAverageVector``'s flow on both (its pixels are read);
+   and ``subtructAverageVector``'s flow on both (its pixels are read:
+   how many differ, by how many uint8 levels at most, and how many by
+   more than one);
 8. ``bench_warp`` (the fused engine's warp stage alone at 1080p) at both
    configurations of ``tools/bench_warp_variants.py`` (bres 2 with
    384-wide subcolumns, bres 1 with 640-wide ones): K8, its no-base floor,
@@ -82,7 +91,8 @@ from ripcurrents_tpu_torch.flow import farneback as fb
 from ripcurrents_tpu_torch.flow import fused_update as fu
 from ripcurrents_tpu_torch.flow import lucas_kanade as lk
 from ripcurrents_tpu_torch.flow import prep_kernel, warp_kernel
-from ripcurrents_tpu_torch.flow.lk_kernel import lk_track, lk_track_plain
+from ripcurrents_tpu_torch.flow.lk_kernel import (PATCH_MARGIN, lk_track,
+                                                  lk_track_plain)
 from ripcurrents_tpu_torch.ops import image as img_ops
 from ripcurrents_tpu_torch.pipelines import modes, runner
 from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
@@ -154,31 +164,48 @@ DENSE_PIXEL_SHARE = 0.98
 
 RAW_H, RAW_W = 720, 1280
 FRAMES = 40
+# The pyramids whose every level K1 is checked and timed at: the legacy
+# detector's, the dense modes' (windowed() and subtract_average() share
+# these K1 geometries at 640x480) and the 1080p windowed stream's.
+K1_PYRAMIDS = {
+    "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
+    "dense 640x480": ((480, 640), FarnebackParams.windowed()),
+    "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
+}
+# K3's launches timed one by one for its median and spread.
+LK_REPS = 30
+# One dependent L2 round trip of an SM on an H100, for K3's latency row
+# (~260 SM cycles at the 1.98 GHz boost clock, the figure Hopper
+# microbenchmarks report). Assumed, not measured by this script.
+L2_ROUND_TRIP_US = 0.13
 
 
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def level0_inputs(h, w, p: FarnebackParams, device, seed=0, flow_px=4.0):
-    """Level-0 kernel inputs of preset p at (h, w): both frames' real
-    expansion tables (the port's prep of two moving-texture frames) and a
-    smooth random flow of up to +-flow_px with zero pads."""
+def level_inputs(h, w, p: FarnebackParams, device, k=0, seed=0,
+                 flow_px=4.0):
+    """Kernel inputs of pyramid level k of preset p at (h, w): both
+    frames' real expansion tables at that level (the port's prep of two
+    moving-texture frames) and a smooth random flow of up to +-flow_px
+    with zero pads."""
     f = moving_frames(2, h, w, device, seed=seed, color=False)
-    e0 = fb.farneback_precompute(f[0], p)[-1]
-    e1 = fb.farneback_precompute(f[1], p)[-1]
+    e0 = fb.farneback_precompute(f[0], p)[p.levels - k]
+    e1 = fb.farneback_precompute(f[1], p)[p.levels - k]
+    _, lh, lw, _, _ = fb._level_geometry(h, w, p, k)
     subcol = p.warp_subcol_hires if h * w >= p.warp_hires_px \
         else p.warp_subcol
-    prep = fu.prepare_expansions(e0, e1, fu._row_tile(h), hw=(h, w),
+    prep = fu.prepare_expansions(e0, e1, fu._row_tile(lh), hw=(lh, lw),
                                  subcol=subcol)
     hp, wp = prep["hpwp"]
     g = torch.Generator().manual_seed(seed + 1)
-    coarse = (torch.rand((1, 2, h // 16 + 2, w // 16 + 2), generator=g)
+    coarse = (torch.rand((1, 2, lh // 16 + 2, lw // 16 + 2), generator=g)
               * 2 - 1) * flow_px
-    fl = F.interpolate(coarse, size=(h, w), mode="bilinear",
+    fl = F.interpolate(coarse, size=(lh, lw), mode="bilinear",
                        align_corners=False)[0]
     flow = torch.zeros((2, hp, wp), dtype=torch.float32)
-    flow[:, :h, :w] = fl
+    flow[:, :lh, :lw] = fl
     return prep, flow.to(device)
 
 
@@ -189,21 +216,31 @@ def _bres(p: FarnebackParams, h, w):
     return wr[0] if isinstance(wr, tuple) else wr
 
 
+def check_update(prep, flow, bres):
+    """K1 against its plain version on one level's inputs. Returns |d|,
+    the share of elements that differ and the plain M; raises past
+    K1_REL / K1_FRAC."""
+    m = fu.farneback_update(prep, flow, bres)
+    m_plain = fu.farneback_update_plain(
+        prep["p0"], prep["p1"], flow, prep["counts"], prep["hw"],
+        prep["th"], prep["sw"], bres)
+    a, b = m.float(), m_plain.float()
+    d = (a - b).abs()
+    frac = (d > 0).float().mean().item()
+    if not (bool((d <= K1_REL * b.abs()).all()) and frac <= K1_FRAC):
+        raise AssertionError(f"K1 disagrees at {prep['hw']}: max "
+                             f"{d.max()}, differing share {frac}")
+    return d, frac, m_plain
+
+
 def check_kernels(h, w, p: FarnebackParams, device, iterations=2):
     """K1, K2 and the level loop against their plain versions at level 0
     of preset p. Returns the deviations; raises past the bounds."""
     bres = _bres(p, h, w)
-    prep, flow = level0_inputs(h, w, p, device)
+    prep, flow = level_inputs(h, w, p, device)
     args = (prep["p0"], prep["p1"], flow, prep["counts"], prep["hw"],
             prep["th"], prep["sw"], bres)
-    m = fu.farneback_update(prep, flow, bres)
-    m_plain = fu.farneback_update_plain(*args)
-    a, b = m.float(), m_plain.float()
-    d1 = (a - b).abs()
-    frac1 = (d1 > 0).float().mean().item()
-    if not (bool((d1 <= K1_REL * b.abs()).all()) and frac1 <= K1_FRAC):
-        raise AssertionError(f"K1 disagrees at {h}x{w}: max {d1.max()}, "
-                             f"differing share {frac1}")
+    d1, frac1, m_plain = check_update(prep, flow, bres)
 
     wy, wx = fu._blur_weights_on(prep["hpwp"][0], h, p.winsize, p.gaussian,
                                  device)
@@ -230,6 +267,51 @@ def check_kernels(h, w, p: FarnebackParams, device, iterations=2):
             "k1_share": frac1, "k2_max": d2.max().item(),
             "k2_mean": d2.mean().item(), "level_max": d3.max().item(),
             "level_mean": d3.mean().item()}
+
+
+def k1_bytes_ops(hp, wp):
+    """K1's bytes and operations at a (hp, wp) level: p0 and the sampled
+    table (one bf16 per pixel and channel each), the flow read, M written;
+    ~45 ops for the 5-channel bilinear sample and ~40 for the tail per
+    pixel."""
+    px = hp * wp
+    return px * (5 * 2 + 5 * 2 + 2 * 4 + 5 * 2), px * 85
+
+
+def update_levels(h, w, p: FarnebackParams, device, reps=50):
+    """K1 at every level of preset p's pyramid at (h, w), coarsest first:
+    against its plain version (``check_update``), with its base blocks,
+    cluster size S and CTA count, and, when reps > 0, its device time per
+    launch (median, min and max of `reps` profiled launches) beside its
+    bound (S and CTAs are the card's: None off it). Returns (one dict per
+    level, K1's device us per frame: each level's median times the
+    preset's iterations there, or None when not timed)."""
+    wr, it_sched = fb._residual_schedule(h, w, p)
+    active = fu.card_clusters() if device.type == "cuda" else None
+    rows, frame_us = [], 0.0
+    for k in range(p.levels, -1, -1):
+        prep, flow = level_inputs(h, w, p, device, k)
+        bres = fb._per_level(wr, k)
+        d, frac, _ = check_update(prep, flow, bres)
+        th, (hp, wp), sw = prep["th"], prep["hpwp"], prep["sw"]
+        s, ctas = fu.cluster_size(th, hp, wp, sw, active) if active \
+            else (None, None)
+        row = {"level": k, "hw": prep["hw"], "th": th, "sw": sw,
+               "blocks": (hp // th) * (wp // sw), "S": s, "ctas": ctas,
+               "bres": bres, "iterations": fb._level_iters(p, it_sched, k),
+               "max_abs_err": d.max().item(), "differing_share": frac}
+        if reps:
+            t = sorted(device_times(
+                lambda: fu.farneback_update(prep, flow, bres), reps,
+                "farneback_update_kernel"))
+            nbytes, ops = k1_bytes_ops(hp, wp)
+            row.update(us=t[len(t) // 2] * 1e3, us_min=t[0] * 1e3,
+                       us_max=t[-1] * 1e3,
+                       bound_us=max(nbytes / HBM_BYTES_PER_S,
+                                    ops / F32_FLOPS) * 1e6)
+            frame_us += row["us"] * row["iterations"]
+        rows.append(row)
+    return rows, (frame_us if reps else None)
 
 
 def upsample_geometries(h, w, p: FarnebackParams):
@@ -322,31 +404,69 @@ def check_lk(device, n, streams=1, p: LKParams = LKParams.particles(),
         pts = torch.stack([lk_points(n, 480, 640, 10 + s)
                            for s in range(streams)])
     pts = pts.to(device)
+    return _compare_lk(prev, nxt, pts, p, n * streams // 2)
+
+
+def _compare_lk(prev, nxt, pts, p, min_tracked):
+    """K3 and its plain version on the same frames and points, held to the
+    LK_* bounds; at least min_tracked points tracked by both."""
     pyr_prev, pyr_next, derivs = lk.prepare(prev, nxt, p)
     out, iters = lk_track(pyr_prev, pyr_next, derivs, pts, p)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)   # a fault in the kernel shows here
+    if pts.device.type == "cuda":
+        torch.cuda.synchronize(pts.device)   # a fault in the kernel shows here
     ref, ref_iters = lk_track_plain(pyr_prev, pyr_next, derivs, pts, p)
     st, st_ref = out[..., 2] > 0.5, ref[..., 2] > 0.5
     both = st & st_ref
     d = (out[..., :2] - ref[..., :2]).norm(dim=-1)
     finite = torch.isfinite(d)
-    if not bool(finite.all()) or int(both.sum()) < n * streams // 2:
+    if not bool(finite.all()) or int(both.sum()) < min_tracked:
         raise AssertionError(f"K3: {int((~finite).sum())} non-finite "
                              f"points, {int(both.sum())} tracked")
     dt = d[both]
-    res = {"points": n * streams, "tracked": int(both.sum()),
+    res = {"points": pts.shape[0] * pts.shape[1], "tracked": int(both.sum()),
            "px_max": d.max().item(), "px_median": dt.median().item(),
            "share_within": (dt <= LK_PX).float().mean().item(),
            "status_equal": (st == st_ref).float().mean().item(),
            "err_excess": ((out[..., 3] - ref[..., 3]).abs() -
                           LK_ERR_RTOL * ref[..., 3].abs()).max().item(),
            "iters_mean": iters.float().mean().item(),
-           "iters_equal": (iters == ref_iters).float().mean().item()}
+           "iters_equal": (iters == ref_iters).float().mean().item(),
+           "iters_differ": int((iters != ref_iters).sum()),
+           "longest_chain": int(iters.max()),
+           "moved_median_px": (out[..., :2] - pts).norm(dim=-1).median()
+           .item()}
     if res["share_within"] < LK_SHARE or res["px_median"] >= LK_MEDIAN or \
             res["status_equal"] < LK_SHARE or \
             res["err_excess"] > 1e-7:
         raise AssertionError(f"K3 disagrees: {res}")
+    return res
+
+
+def check_lk_far(device, shift=(2, 10)):
+    """K3 against its plain version on one pyramid level where 30 points
+    move by `shift` (rows, columns) px, farther than the J patch's margin
+    (lk_kernel.PATCH_MARGIN), so the kernel copies its patch again inside
+    the level: a smooth random 240x320 texture and the same texture rolled
+    by shift. Returns the deviations; raises past the LK_* bounds or when
+    the points did not move past the margin."""
+    g = torch.Generator().manual_seed(3)
+    tex = torch.rand((1, 1, 240, 320), generator=g) * 255
+    for _ in range(3):
+        tex = F.avg_pool2d(F.pad(tex, (4, 4, 4, 4), mode="replicate"), 9,
+                           stride=1)
+    tex = tex[0]
+    tex = ((tex - tex.min()) / (tex.max() - tex.min()) * 255).to(
+        torch.uint8)
+    nxt = torch.roll(tex, shifts=shift, dims=(1, 2))
+    grid = torch.stack(torch.meshgrid(torch.linspace(60.0, 250.0, 6),
+                                      torch.linspace(50.0, 180.0, 5),
+                                      indexing="xy"), -1).reshape(1, -1, 2)
+    p = LKParams((50, 50), 0, 30, 0.01, 1e-4)
+    res = _compare_lk(tex.to(device), nxt.to(device), grid.to(device), p,
+                      grid.shape[1])
+    if res["moved_median_px"] <= PATCH_MARGIN:
+        raise AssertionError(f"K3 far move: the points moved only "
+                             f"{res['moved_median_px']} px")
     return res
 
 
@@ -824,10 +944,15 @@ def dense_small_readings(device, mode, n, cfg: ModeConfig):
         res[dev.type] = (mean, outs[-1].cpu())
     (mg, og), (mc, oc) = res[device.type], res["cpu"]
     d = (mg - mc).norm(dim=-1).flatten()
+    # per pixel, the largest channel difference in uint8 levels
+    levels = (og.int() - oc.int()).abs().amax(dim=-1)
     return {"ring_mean_median_px": d.median().item(),
             "ring_mean_p99_px": torch.quantile(d, 0.99).item(),
             "ring_mean_max_px": d.max().item(),
-            "pixels_equal": (og == oc).all(dim=-1).float().mean().item()}
+            "pixels_equal": (levels == 0).float().mean().item(),
+            "pixels_differing": int((levels > 0).sum()),
+            "max_level_diff": int(levels.max()),
+            "pixels_over_one_level": int((levels > 1).sum())}
 
 
 def compare_dense_small(device, mode="subtructAverageVectorWithWindow",
@@ -888,6 +1013,50 @@ def device_ms(fn, reps):
     return us / 1e3 / reps
 
 
+def device_times(fn, reps, name):
+    """Device time in ms of each of `reps` warm calls of fn, which launches
+    one kernel whose name holds `name` (torch.profiler events). A session
+    that records fewer than half of the launches (the profiler dropped some
+    in long runs) is repeated, at most twice."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and
+              name in e.name]
+        if len(ts) >= reps // 2:
+            return ts
+    raise AssertionError(f"profiled {len(ts)} launches of {name}, "
+                         f"expected {reps}")
+
+
+def lk_timing(device, pts, p: LKParams = LKParams.particles(),
+              reps=LK_REPS):
+    """K3 alone at 640x480 (``lk_inputs``) on pts (B, N, 2): the device
+    times in ms of `reps` launches, sorted, and one launch's iteration
+    counts (B, N) (their max is the longest per-point chain)."""
+    pyr_prev, pyr_next, derivs = lk.prepare(*lk_inputs(device), p)
+    k3 = lambda: lk_track(pyr_prev, pyr_next, derivs, pts, p)  # noqa: E731
+    iters = k3()[1]
+    return sorted(device_times(k3, reps, "lk_track_kernel")), iters
+
+
+def median_ms(fn, reps, *names):
+    """A kernel's device time per call: for each kernel name fn launches
+    once per call, the median of its profiled launches, summed over the
+    names. Medians of the recorded launches do not depend on how many
+    records the profiler dropped (a sum over the session would)."""
+    total = 0.0
+    for name in names:
+        t = sorted(device_times(fn, reps, name))
+        total += t[len(t) // 2]
+    return total
+
+
 def kernel_rows(device, launches, devs):
     """Timing rows at the 640x480 shapes: K1, K2, K4, K5 and K6 at level 0
     of the legacy preset, K3 on the 201 timeline vertices, K7 at level 0 of
@@ -896,7 +1065,7 @@ def kernel_rows(device, launches, devs):
     p = FarnebackParams.legacy()
     h, w = 480, 640
     bres = _bres(p, h, w)
-    prep, flow = level0_inputs(h, w, p, device)
+    prep, flow = level_inputs(h, w, p, device)
     hp, wp = prep["hpwp"]
     px = hp * wp
     m = fu.farneback_update(prep, flow, bres)
@@ -906,16 +1075,14 @@ def kernel_rows(device, launches, devs):
     nt = wx.numel()
 
     k1 = lambda: fu.farneback_update(prep, flow, bres)  # noqa: E731
-    k1_ms, k1_wall = device_ms(k1, 100), wall_ms(k1, 100)
+    k1_ms = median_ms(k1, 100, "farneback_update_kernel")
+    k1_wall = wall_ms(k1, 100)
     k1_plain = device_ms(lambda: fu.farneback_update_plain(*args), 10)
-    # bytes: p0 and the sampled table (one bf16 per pixel and channel
-    # each), flow read, M written; ops: ~45 for the 5-channel bilinear
-    # sample and ~40 for the tail per pixel.
-    k1_bytes = px * (5 * 2 + 5 * 2 + 2 * 4 + 5 * 2)
-    k1_ops = px * 85
+    k1_bytes, k1_ops = k1_bytes_ops(hp, wp)
     k2 = lambda: fu.farneback_blur_solve(  # noqa: E731
         m, (h, w), p.winsize, p.gaussian, True)
-    k2_ms, k2_wall = device_ms(k2, 100), wall_ms(k2, 100)
+    k2_ms = median_ms(k2, 100, "farneback_blur_solve_kernel")
+    k2_wall = wall_ms(k2, 100)
     k2_plain = device_ms(lambda: fu.farneback_blur_solve_plain(
         m, (h, w), wy, wx, True), 10)
     k2_bytes = px * (5 * 2 + 2 * 4)
@@ -937,7 +1104,8 @@ def kernel_rows(device, launches, devs):
     taps = img_ops._padded_taps_on(key, k4_in.device)
     k4 = lambda: img_ops.resize_bilinear_cf_padded(  # noqa: E731
         k4_in, st, dt, dp, scale)
-    k4_ms, k4_wall = device_ms(k4, 100), wall_ms(k4, 100)
+    k4_ms = median_ms(k4, 100, "resize_cf_padded_kernel")
+    k4_wall = wall_ms(k4, 100)
     k4_plain = device_ms(
         lambda: img_ops.resize_cf_padded_plain(k4_in, *taps), 10)
     k4_lib = device_ms(lambda: img_ops.resize_cf_padded_dense(k4_in, key),
@@ -951,23 +1119,33 @@ def kernel_rows(device, launches, devs):
     # 4 taps + 3 products per element, per iteration 4 taps + 2 products
     # per element (2 flops each).
     lkp = LKParams.particles()
-    prev, nxt = lk_inputs(device)
+    pyr_prev, pyr_next, derivs = lk.prepare(*lk_inputs(device), lkp)
     pts = timeline_init((10.0, 150.0), (630.0, 400.0), 200,
                         device).vertices[None]
-    pyr_prev, pyr_next, derivs = lk.prepare(prev, nxt, lkp)
-    k3 = lambda: lk_track(pyr_prev, pyr_next, derivs, pts, lkp)  # noqa: E731
-    _, iters = k3()
-    k3_ms, k3_wall = device_ms(k3, 20), wall_ms(k3, 20)
+    k3_t, iters = lk_timing(device, pts)
+    k3_ms, k3_wall = k3_t[len(k3_t) // 2], wall_ms(
+        lambda: lk_track(pyr_prev, pyr_next, derivs, pts, lkp), 20)
     k3_plain = device_ms(
         lambda: lk_track_plain(pyr_prev, pyr_next, derivs, pts, lkp), 2)
     area = lkp.win[0] * lkp.win[1]
     k3_bytes = 4 * 4 * sum(lv.numel() for lv in pyr_prev) + pts.numel() * 12
     k3_iters = int(iters.sum())
     k3_ops = 2 * area * (pts.shape[1] * len(pyr_prev) * 15 + k3_iters * 6)
+    chain = int(iters.max())
     print(f"[5] lk_track iterations at 640x480, 201 vertices: "
           f"{k3_iters} in all, {k3_iters / pts.shape[1]:.2f} per point over "
           f"{len(pyr_prev)} levels (at most "
-          f"{lkp.max_iters * len(pyr_prev)})")
+          f"{lkp.max_iters * len(pyr_prev)}); longest chain {chain}")
+    print(f"[5] lk_track 201 vertices: median {k3_ms * 1e3:.2f} us of "
+          f"{LK_REPS} launches (min {k3_t[0] * 1e3:.2f}, max "
+          f"{k3_t[-1] * 1e3:.2f}); {k3_ms * 1e3 / chain:.3f} us per "
+          f"iteration along the longest chain; latency bound {chain} x "
+          f"{L2_ROUND_TRIP_US} us = {chain * L2_ROUND_TRIP_US:.2f} us")
+    t_s, iters_s = lk_timing(device, lk_points(1280, 480, 640, 11).to(
+        device)[None])
+    print(f"[5] lk_track 1280 points: median {t_s[len(t_s) // 2] * 1e3:.2f} "
+          f"us of {LK_REPS} launches (min {t_s[0] * 1e3:.2f}, max "
+          f"{t_s[-1] * 1e3:.2f}); longest chain {int(iters_s.max())}")
 
     # K5 and K6 at level 0 of the legacy 640x480 table (5, 544, 896) bf16.
     # Bytes: the frame (f32) and t (bf16) once each, the window weights;
@@ -978,9 +1156,11 @@ def kernel_rows(device, launches, devs):
     k5, k6, k5_plain, k6_plain, _, t = prep_call(img, args)
     win = fb._prep_windows_on(args, device)
     ph, pw = args[8], args[9]
-    k5_ms, k5_wall = device_ms(k5, 100), wall_ms(k5, 100)
+    k5_ms = median_ms(k5, 100, "prep_y_kernel")
+    k5_wall = wall_ms(k5, 100)
     k5_plain_ms = device_ms(k5_plain, 5)
-    k6_ms, k6_wall = device_ms(k6, 100), wall_ms(k6, 100)
+    k6_ms = median_ms(k6, 100, "prep_x3_kernel")
+    k6_wall = wall_ms(k6, 100)
     k6_plain_ms = device_ms(k6_plain, 5)
     k5_bytes = img.numel() * 4 + t.numel() * 2 + win["wy"].numel() * 4
     k5_ops = 2 * int(win["y_len"].sum()) * w
@@ -1002,7 +1182,8 @@ def kernel_rows(device, launches, devs):
     # weights, ~76 per pixel.
     r1, wflow = warp_inputs(h, w, device, 12.0)
     k7 = lambda: warp_kernel.warp5_shift(r1, wflow, 16)  # noqa: E731
-    k7_ms, k7_wall = device_ms(k7, 100), wall_ms(k7, 100)
+    k7_ms = median_ms(k7, 100, "warp5_shift_kernel")
+    k7_wall = wall_ms(k7, 100)
     k7_plain = device_ms(
         lambda: warp_kernel.warp5_shift_plain(r1, wflow, 16), 5)
     k7_bytes = h * w * (5 * 4 + 2 * 4 + 5 * 4)
@@ -1027,7 +1208,8 @@ def kernel_rows(device, launches, devs):
     counts8 = warp_kernel.frame_counts(h, w, 64, 256, device)
     k8 = lambda: warp_kernel.warp_tiles(  # noqa: E731
         r1, wflow, counts8, 64, 256, 2)
-    k8_ms, k8_wall = device_ms(k8, 100), wall_ms(k8, 100)
+    k8_ms = median_ms(k8, 100, "tile_sums_kernel", "warp_tiles_kernel")
+    k8_wall = wall_ms(k8, 100)
     k8_plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
         r1, wflow, counts8, 64, 256, 2), 5)
     k8_bytes = h * w * (5 * 4 + 2 * 4 + 5 * 4)
@@ -1054,10 +1236,13 @@ def kernel_rows(device, launches, devs):
             "ripcurrents_tpu/flow/fused_update.py:823", launches["K2"],
             devs["k2_max"], k2_ms, k2_plain, k2_bytes, k2_ops, lib_ms,
             k2_wall),
-        row("lk_track", "ripcurrents_tpu_torch/csrc/lk_track.cu",
-            "ripcurrents_tpu/flow/lk_pallas.py:322", launches["K3"],
-            devs["k3_px_max"], k3_ms, k3_plain, k3_bytes, k3_ops, None,
-            k3_wall),
+        dict(row("lk_track", "ripcurrents_tpu_torch/csrc/lk_track.cu",
+                 "ripcurrents_tpu/flow/lk_pallas.py:322", launches["K3"],
+                 devs["k3_px_max"], k3_ms, k3_plain, k3_bytes, k3_ops, None,
+                 k3_wall),
+             ms_min=k3_t[0], ms_max=k3_t[-1], longest_chain=chain,
+             latency_bound_ms=chain * L2_ROUND_TRIP_US * 1e-3,
+             ms_1280_points=t_s[len(t_s) // 2]),
         row("resize_cf_padded", "ripcurrents_tpu_torch/csrc/"
             "resize_cf_padded.cu", "ripcurrents_tpu/ops/resize_pallas.py:143",
             launches["K4"], devs["k4_vs_plain"], k4_ms, k4_plain, k4_bytes,
@@ -1094,7 +1279,8 @@ def bench_rows(device):
         res = {v: bench_warp.run(v, bres, sw, g=g)
                for v in bench_warp.VARIANTS}
         px = g["hp"] * g["wp"]
-        k8_dev = device_ms(bench_warp.variant_fn("A", g, bres), 20)
+        k8_dev = median_ms(bench_warp.variant_fn("A", g, bres), 20,
+                           "tile_sums_kernel", "warp_tiles_kernel")
         plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
             g["table"], g["flow"], g["counts"], g["th"], g["sw"], bres), 3)
         rows.append({"bres": bres, "th": g["th"], "sw": g["sw"],
@@ -1125,6 +1311,8 @@ def main() -> int:
     reports = kernels.build()
     kernels.entry("farneback_update")
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"[1] K1 clusters the card holds at once, by cluster size: "
+          f"{fu.card_clusters()}")
     for stem, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1135,6 +1323,23 @@ def main() -> int:
     devs_hd = check_kernels(1080, 1920, FarnebackParams.windowed(), dev,
                             iterations=1)
     print(f"[2] 1080p L0 windowed (bres 1, sw 640, gauss 10): {devs_hd}")
+    k1_levels = {}
+    for name, (hw, preset) in K1_PYRAMIDS.items():
+        rows, frame_us = update_levels(*hw, preset, dev)
+        for r in rows:
+            print(f"[2] K1 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]} "
+                  f"(th {r['th']}, sw {r['sw']}, {r['blocks']} blocks, S "
+                  f"{r['S']}, {r['ctas']} CTAs, bres {r['bres']}, x"
+                  f"{r['iterations']}): max |d| {r['max_abs_err']}; "
+                  f"{r['us']:.2f} us/launch on the device (min "
+                  f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
+                  f"{r['bound_us']:.2f} us")
+        print(f"[2] K1 per {name} frame: {frame_us:.2f} us on the device "
+              f"(each level's median x its iterations)")
+        k1_levels[name] = {"frame_us": frame_us, "levels": rows}
+    l0 = k1_levels["legacy 640x480"]["levels"][-1]
+    if l0["ctas"] < 120:
+        raise AssertionError(f"K1 at 640x480 L0 launches {l0['ctas']} CTAs")
     k4_devs = check_resize(480, 640, FarnebackParams.legacy(), dev)
     devs.update(k4_devs)
     print(f"[2] K4 at the legacy level changes (120x160 -> 240x320 -> "
@@ -1171,6 +1376,8 @@ def main() -> int:
           f"{check_lk(dev, 201, streams=2)}")
     print(f"[2] K3 at 640x480, 192 points, window 21x21: "
           f"{check_lk(dev, 192, p=LKParams.red_points())}")
+    print(f"[2] K3 at 240x320, one level, 30 points moving (2, 10) px "
+          f"(past the J patch margin): {check_lk_far(dev)}")
 
     host_ms, ev_ms, launches, share = run_legacy(dev)
     per_frame = tuple(n / FRAMES for n in launches)
@@ -1287,6 +1494,12 @@ def main() -> int:
               f"{b['k8_plain_ms'] * 1e3:.2f} us; checksums {b['checksum']}")
     rows[-1]["ms_1080p_halo"] = {f"bres{b['bres']}_sw{b['sw']}":
                                  b["k8_device_ms"] for b in bench}
+    rows[0]["us_per_frame"] = {k: v["frame_us"] for k, v in
+                               k1_levels.items()}
+    rows[0]["levels_us"] = {k: [[r["level"], r["S"], r["ctas"],
+                                 r["us"], r["bound_us"]]
+                                for r in v["levels"]]
+                            for k, v in k1_levels.items()}
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ two hand-written CUDA kernels (``csrc/``):
 - K1 ``farneback_update``: per (row tile x subcolumn) block the integer
   base displacement, the bilinear sample of the second frame's expansion
   at base + clamped residual, and the FarnebackUpdateMatrices tail -> M;
+  launched as one thread-block cluster of ``cluster_size`` CTAs per block;
 - K2 ``farneback_blur_solve``: the window blur of M and the 2x2 solve ->
   flow.
 
@@ -226,10 +227,54 @@ def farneback_update_plain(p0: torch.Tensor, p1: torch.Tensor,
                         r6 * r2 + r5 * r3]).to(M_DTYPE)
 
 
+# The largest cluster K1 uses (a cluster above 8 CTAs is a non-portable
+# size on Hopper).
+MAX_CLUSTER = 16
+
+
+def cluster_size(th: int, hp: int, wp: int, sw: int,
+                 active: dict) -> tuple[int, int]:
+    """(S, CTAs) of K1's launch at one level: S CTAs of one cluster split
+    each (th x sw) base block's rows evenly (CTA r takes rows
+    [r*th//S, (r+1)*th//S), so S <= th leaves none empty). S is the
+    largest power of two <= min(MAX_CLUSTER, th) at which the card holds
+    every cluster of the level at once (blocks <= active[S], `active`
+    mapping a cluster size to the clusters the card holds: one wave, so
+    no cluster waits for another to finish), else 1.
+    CTAs = (hp/th) * (wp/sw) * S."""
+    blocks = (hp // th) * (wp // sw)
+    s = 1
+    while 2 * s <= min(MAX_CLUSTER, th) and blocks <= active.get(2 * s, 0):
+        s *= 2
+    return s, blocks * s
+
+
+@functools.lru_cache(maxsize=1)
+def card_clusters() -> dict:
+    """{S: K1 clusters of S CTAs the card holds at once} for S = 1, 2, 4,
+    ..., MAX_CLUSTER (cudaOccupancyMaxActiveClusters); raises when the
+    query fails."""
+    query = kernels.entry("farneback_update_active_clusters")
+    out = {}
+    for k in range(MAX_CLUSTER.bit_length()):
+        got = query(1 << k)
+        if got < 0:
+            raise RuntimeError(f"farneback_update: cluster occupancy query "
+                               f"failed with CUDA error {-got}")
+        out[1 << k] = got
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_cluster(th: int, hp: int, wp: int, sw: int) -> int:
+    return cluster_size(th, hp, wp, sw, card_clusters())[0]
+
+
 def farneback_update(prep: dict, flow: torch.Tensor,
                      bres: int) -> torch.Tensor:
     """K1: the matrix update of one level from flow (2, Hp, Wp) f32 with
-    zero pads -> M (5, Hp, Wp) bf16."""
+    zero pads -> M (5, Hp, Wp) bf16. On CUDA tensors one cluster launch
+    (``cluster_size`` CTAs per base block)."""
     (h, w), (hp, wp), th, sw = prep["hw"], prep["hpwp"], prep["th"], \
         prep["sw"]
     dev = flow.device
@@ -245,10 +290,14 @@ def farneback_update(prep: dict, flow: torch.Tensor,
     if not kernels.launches_on(dev):
         return farneback_update_plain(prep["p0"], prep["p1"], flow,
                                       prep["counts"], (h, w), th, sw, bres)
+    if flow.data_ptr() % 8 or prep["p0"].data_ptr() % 4:
+        raise ValueError("farneback_update: flow must be 8-byte and p0 "
+                         "4-byte aligned (paired loads)")
     m = torch.empty((5, hp, wp), dtype=M_DTYPE, device=dev)
     err = kernels.entry("farneback_update")(
         prep["p0"].data_ptr(), prep["p1"].data_ptr(), flow.data_ptr(),
         prep["counts"].data_ptr(), m.data_ptr(), h, w, hp, wp, th, sw, bres,
+        _launch_cluster(th, hp, wp, sw),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "farneback_update")
     farneback_update.launches += 1

@@ -28,6 +28,17 @@ from ripcurrents_tpu_torch.config import LKParams
 
 MAX_LEVELS = 8               # pyramid images a launch takes (kMaxLevels)
 MAX_SHARED = 227 * 1024      # bytes of shared memory a Hopper block can use
+PATCH_MARGIN = 8             # J patch margin around the window (kMargin)
+
+
+def shared_bytes(win: tuple[int, int]) -> int:
+    """Dynamic shared memory of one K3 block for a (wx, wy) window: the
+    staged source pixels of the I, Ix and Iy windows ((wy+1) x (wx+1)
+    float4) and the J patch (the window plus PATCH_MARGIN px on each side
+    and the bilinear tap's extra row and column, float32)."""
+    wx, wy = win
+    return 16 * (wx + 1) * (wy + 1) + 4 * (
+        (wx + 2 * PATCH_MARGIN + 1) * (wy + 2 * PATCH_MARGIN + 1))
 
 
 def _reflect101(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -192,7 +203,7 @@ def lk_track(pyr_prev, pyr_next, derivs, pts: torch.Tensor, p: LKParams):
     if not kernels.launches_on(dev):
         return lk_track_plain(pyr_prev, pyr_next, derivs, pts, p)
     wx, wy = p.win
-    shared = 3 * wx * wy * 4
+    shared = shared_bytes(p.win)
     if shared > MAX_SHARED - 1024 or b > 65535 or n == 0:
         raise ValueError(f"lk_track: window {p.win} needs {shared} B of "
                          f"shared memory, streams {b}, points {n}")

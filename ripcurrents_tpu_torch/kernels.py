@@ -40,7 +40,10 @@ _F = ctypes.c_float
 _ENTRIES = {
     "farneback_update": ("farneback_update", "farneback_update_launch",
                          [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P]),
+                          _I, _P]),
+    "farneback_update_active_clusters": ("farneback_update",
+                                         "farneback_update_active_clusters",
+                                         [_I]),
     "farneback_blur_solve": ("farneback_blur_solve",
                              "farneback_blur_solve_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),

@@ -1,8 +1,9 @@
 """The Hopper kernels K1-K4 and the level loop against their plain
-PyTorch versions, on the card. These are the checks chip_smoke.py runs
-(its check functions, its tolerances). Without a card every test skips:
-a CUDA kernel has no CPU interpret mode, and the CPU tests hold the plain
-versions to the JAX kernels instead."""
+PyTorch versions, on the card (K1 at every pyramid level, K3 with points
+that cross the image edge and move past its J patch). These are the
+checks chip_smoke.py runs (its check functions, its tolerances). Without
+a card every test skips: a CUDA kernel has no CPU interpret mode, and
+the CPU tests hold the plain versions to the JAX kernels instead."""
 
 import importlib.util
 import pathlib
@@ -42,6 +43,35 @@ def test_kernels_match_plain_versions(card, hw, preset, iterations):
     devs = cs.check_kernels(*hw, getattr(FarnebackParams, preset)(), card,
                             iterations=iterations)
     assert devs["k1_share"] <= cs.K1_FRAC
+
+
+@pytest.mark.parametrize("hw,preset", [
+    ((480, 640), "legacy"),            # 2, 6 and 15 base blocks
+    ((1080, 1920), "windowed"),        # 4, 16 and 27
+    ((40, 300), "legacy"),             # 1, 2 and 3, ragged
+])
+def test_update_kernel_matches_plain_at_every_level(card, hw, preset):
+    """K1 (one cluster of S CTAs per base block) against its plain version
+    at every level of the pyramid, the 1- and 2-block coarse levels
+    included; update_levels raises past K1_REL / K1_FRAC."""
+    rows, _ = _chip_smoke().update_levels(*hw, getattr(FarnebackParams,
+                                                       preset)(), card,
+                                          reps=0)
+    assert len(rows) == 3
+    for r in rows:
+        assert r["differing_share"] <= _chip_smoke().K1_FRAC
+        assert r["ctas"] == r["blocks"] * r["S"]
+    if hw == (480, 640):
+        assert rows[-1]["ctas"] >= 120
+    if hw == (40, 300):
+        assert [r["blocks"] for r in rows[:2]] == [1, 2]
+
+
+def test_lk_kernel_refreshes_its_patch_and_matches_plain(card):
+    """Points that move farther than the J patch's margin inside one level
+    (the kernel copies its patch again) agree with the plain version."""
+    res = _chip_smoke().check_lk_far(card)
+    assert res["share_within"] >= _chip_smoke().LK_SHARE
 
 
 def test_legacy_step_on_card_matches_cpu(card):
