@@ -26,8 +26,10 @@ Every phase passes or raises (the script catches nothing):
    out-of-image points included, and on one level with points that move
    past its J patch's margin; K5 (prep_y) and K6 (prep_x3) against
    their plain versions and the dense matmul form at every level of the
-   640x480 legacy and 1080p windowed tables and of the 640x480
-   channels-last tables of the portable engine; K7 (warp5_shift) against
+   640x480 legacy and 1080p windowed tables, of the 640x480
+   channels-last tables of the portable engine, of the ragged 75x107 and
+   the 40x300 legacy tables and of android's 4-level 640x480 tables
+   (``PREP_CHECKS``); K7 (warp5_shift) against
    its plain version at 640x480 with flows inside and beyond +-16 px; K8
    (warp_tiles) against its plain version in its halo layout at 1080p
    (bres 2 with 384-wide and bres 1 with 640-wide subcolumns, the
@@ -39,12 +41,15 @@ Every phase passes or raises (the script catches nothing):
    shapes, a live duty mask, K1 and K2 each launched 6 times, K4 twice and
    K5 and K6 3 times per frame; then the whole step at 192x256 on the card
    against the same step on the CPU (plain versions);
-4. the windowed Farneback stream at 1920x1080;
+4. the windowed Farneback stream at 1920x1080, and one torch.profiler
+   trace of it: device time per frame and the share K5 and K6 take;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
    version, its bound and a library call, as one JSON line (K8 in its
    frame layout, the tiled engine's level 0); K3 as the median and spread
    of 30 launches at 201 vertices and at 1280 points, with its longest
-   per-point chain of iterations and a latency row beside its bound;
+   per-point chain of iterations and a latency row beside its bound; K5
+   and K6 at every level of the legacy 640x480 and windowed 1080p
+   pyramids (median of 50 launches, bound, issue floor) and per frame;
 6. the particle modes through ``run_frames`` at 640x480 from 1280x720
    frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
    ``streaklines`` (1280 vertices), ``populationMap`` and
@@ -53,7 +58,8 @@ Every phase passes or raises (the script catches nothing):
 7. the dense Farneback modes through ``run_frames`` at 640x480 from
    1280x720 frames: ``subtructAverageVectorWithWindow`` for 40 frames, the
    other six for a few frames each (``averageVector`` with its 300-frame
-   ring), then ``subtructAverageVector`` on the portable engine
+   ring, and the device memory its state holds and peaks at), then
+   ``subtructAverageVector`` on the portable engine
    (``warp_impl="pallas"``: K7 9 times per frame) and on its tiled warp
    (``warp_impl="tiled"``: K8 9 times per frame); then
    ``subtructAverageVectorWithWindow`` on the fused engine and on the
@@ -171,6 +177,27 @@ K1_PYRAMIDS = {
     "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
     "dense 640x480": ((480, 640), FarnebackParams.windowed()),
     "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
+}
+# The pyramids whose every level K5 and K6 are timed at: the legacy
+# detector's and the 1080p windowed stream's.
+PREP_PYRAMIDS = {
+    "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
+    "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
+}
+# The geometries K5 and K6 are held to their plain versions at, every
+# level: the main paths' tables, the portable engine's channels-last
+# float32 table, a ragged width, the 40x300 pyramid (one-tile coarse
+# levels) and android's 4-level pyramid (a 260-tap L3 window).
+PREP_CHECKS = {
+    "640x480 legacy (5, Ph, Pw) bf16": ((480, 640), FarnebackParams.legacy()),
+    "1080p windowed (5, Ph, Pw) bf16": ((1080, 1920),
+                                        FarnebackParams.windowed()),
+    "640x480 subtract_average (lh, lw, 5) f32": (
+        (480, 640), dataclasses.replace(FarnebackParams.subtract_average(),
+                                        warp_impl="pallas")),
+    "75x107 legacy (ragged)": ((75, 107), FarnebackParams.legacy()),
+    "40x300 legacy": ((40, 300), FarnebackParams.legacy()),
+    "640x480 android (4 levels)": ((480, 640), FarnebackParams.android()),
 }
 # K3's launches timed one by one for its median and spread.
 LK_REPS = 30
@@ -757,6 +784,45 @@ def run_stream_1080p(device, frames=8, warm=3):
     return ms, flow.norm(dim=-1).mean().item()
 
 
+def stream_1080p_breakdown(device, frames=5, warm=2):
+    """Where the windowed 1080p stream's device time goes: one
+    torch.profiler trace of `frames` warm frames. Returns the device
+    kernel time per frame, K5's and K6's (and their records, 3 of each
+    per frame unless the profiler dropped some), their share of the
+    frame, launches per frame and the top kernels."""
+    p = FarnebackParams.windowed()
+    gray = moving_frames(warm + frames + 1, 1080, 1920, device, color=False)
+    exp = fb.farneback_precompute(gray[0], p)
+    for t in range(1, warm + 1):
+        _, exp = fb.farneback_stream(exp, gray[t], p)
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(warm + 1, warm + frames + 1):
+            _, exp = fb.farneback_stream(exp, gray[t], p)
+        torch.cuda.synchronize(device)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    total = sum(us for us, _ in by_name.values())
+
+    def of(kernel):
+        hits = [v for k, v in by_name.items() if kernel in k]
+        return sum(us for us, _ in hits), sum(n for _, n in hits)
+
+    (k5_us, k5_n), (k6_us, k6_n) = of("prep_y_kernel"), of("prep_x3_kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_ms_per_frame": total / frames / 1e3,
+            "k5_us_per_frame": k5_us / frames, "k5_records": k5_n,
+            "k6_us_per_frame": k6_us / frames, "k6_records": k6_n,
+            "prep_share": (k5_us + k6_us) / total,
+            "launches_per_frame": sum(n for _, n in by_name.values()) /
+            frames,
+            "top_us_per_frame": {k[:60]: round(us / frames, 2)
+                                 for k, (us, _) in top}}
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the particle modes through run_frames
 # ---------------------------------------------------------------------------
@@ -908,6 +974,25 @@ def run_dense_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
     return host_ms, ev_ms, launches, out
 
 
+def ring_step_memory(device, steps=5, cfg: ModeConfig = ModeConfig()):
+    """``averageVector`` (its 300-frame ring) stepped by hand at 640x480:
+    (MiB of device memory its state holds after init, MiB of the peak
+    during `steps` steps above what was allocated before init)."""
+    raw = moving_frames(steps + 1, RAW_H, RAW_W, device)
+    init, step = MODES["averageVector"](cfg, device=device)
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    state = init(raw[0])
+    torch.cuda.synchronize(device)
+    held = torch.cuda.memory_allocated(device) - base
+    torch.cuda.reset_peak_memory_stats(device)
+    for t in range(1, steps + 1):
+        state, _ = step(state, raw[t])
+    torch.cuda.synchronize(device)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    return held / 2 ** 20, peak / 2 ** 20
+
+
 @contextlib.contextmanager
 def _recorded_flows(flows: list):
     """Append every flow the modes' stream step computes to `flows`."""
@@ -1057,6 +1142,72 @@ def median_ms(fn, reps, *names):
     return total
 
 
+def prep_bytes_ops(args, win, channels_first=True):
+    """((bytes, ops) of K5, (bytes, ops) of K6) at one level geometry
+    (``farneback._prep_level_args``) with its windows, counting only what
+    the function needs: K5 reads the frame's rows that some window covers
+    (f32) and each row's window weights (bf16 values, 2 bytes), writes t
+    (bf16) once, and does a product and an add per tap of each output's
+    window; K6 reads t's nonzero rows over the source columns some window
+    covers and each nonzero column's window weights of the three x
+    matrices (bf16 values), writes the table (bf16 channels first, or
+    f32) once with its pads, and does six products and six adds per tap
+    of each nonzero output's window and 7 operations of the combine."""
+    h, w, ph, pw = args[0], args[1], args[8], args[9]
+
+    def covered(lo, ln):
+        live = ln > 0
+        return int((lo[live] + ln[live]).max() - lo[live].min())
+
+    y_lo, y_len, x_lo, x_len = (win[k].cpu().numpy() for k in
+                                ("y_lo", "y_len", "x_lo", "x_len"))
+    rows = int((y_len[:ph] > 0).sum())
+    cols = int((x_len > 0).sum())
+    k5 = (covered(y_lo, y_len) * w * 4 + 3 * ph * w * 2 +
+          int(y_len.sum()) * 2,
+          2 * int(y_len.sum()) * w)
+    k6 = (int((y_len > 0).sum()) * covered(x_lo, x_len) * 2 +
+          5 * ph * pw * (2 if channels_first else 4) +
+          3 * int(x_len.sum()) * 2,
+          12 * int(x_len.sum()) * rows + 7 * rows * cols)
+    return k5, k6
+
+
+def prep_levels(h, w, p: FarnebackParams, device, reps=50):
+    """K5 and K6 at every level of preset p at (h, w), coarsest first:
+    each kernel's device us per launch (median, min and max of `reps`
+    profiled launches) beside its bound, max(bytes / HBM, ops / F32), and
+    its issue floor, ops / (F32 / 2): with -fmad=false every product and
+    every add is an instruction of its own. Returns (one dict per level,
+    the sums per frame: one launch of each per level)."""
+    img = moving_frames(1, h, w, device, color=False)[0].to(torch.float32)
+    channels_first = p.warp_impl == "fused"
+    rows = []
+    for k in range(p.levels, -1, -1):
+        args = fb._prep_level_args(h, w, p, k)
+        k5, k6 = prep_call(img, args, channels_first)[:2]
+        win = fb._prep_windows_on(args, device)
+        row = {"level": k, "hw": (args[2], args[3]),
+               "canvas": (args[8], args[9]),
+               "window": int(win["y_len"].max())}
+        for name, fn, kernel, (nbytes, ops) in zip(
+                ("k5", "k6"), (k5, k6), ("prep_y_kernel", "prep_x3_kernel"),
+                prep_bytes_ops(args, win, channels_first)):
+            t = sorted(device_times(fn, reps, kernel))
+            row.update({f"{name}_us": t[len(t) // 2] * 1e3,
+                        f"{name}_us_min": t[0] * 1e3,
+                        f"{name}_us_max": t[-1] * 1e3,
+                        f"{name}_bound_us": max(nbytes / HBM_BYTES_PER_S,
+                                                ops / F32_FLOPS) * 1e6,
+                        f"{name}_bound_by": "bytes" if nbytes /
+                        HBM_BYTES_PER_S >= ops / F32_FLOPS else "operations",
+                        f"{name}_floor_us": ops / (F32_FLOPS / 2) * 1e6})
+        rows.append(row)
+    frame = {key: sum(r[key] for r in rows)
+             for key in ("k5_us", "k6_us", "k5_bound_us", "k6_bound_us")}
+    return rows, frame
+
+
 def kernel_rows(device, launches, devs):
     """Timing rows at the 640x480 shapes: K1, K2, K4, K5 and K6 at level 0
     of the legacy preset, K3 on the 201 timeline vertices, K7 at level 0 of
@@ -1147,25 +1298,19 @@ def kernel_rows(device, launches, devs):
           f"us of {LK_REPS} launches (min {t_s[0] * 1e3:.2f}, max "
           f"{t_s[-1] * 1e3:.2f}); longest chain {int(iters_s.max())}")
 
-    # K5 and K6 at level 0 of the legacy 640x480 table (5, 544, 896) bf16.
-    # Bytes: the frame (f32) and t (bf16) once each, the window weights;
-    # the output (bf16) once. Ops: 2 per product over this geometry's
-    # windows (K6: six sums) and 7 per pixel for the combine.
+    # K5 and K6 at level 0 of the legacy 640x480 table (5, 544, 896) bf16
+    # (bytes and ops: ``prep_bytes_ops``).
     img = moving_frames(1, h, w, device, color=False)[0].to(torch.float32)
     args = fb._prep_level_args(h, w, p, 0)
     k5, k6, k5_plain, k6_plain, _, t = prep_call(img, args)
     win = fb._prep_windows_on(args, device)
-    ph, pw = args[8], args[9]
     k5_ms = median_ms(k5, 100, "prep_y_kernel")
     k5_wall = wall_ms(k5, 100)
     k5_plain_ms = device_ms(k5_plain, 5)
     k6_ms = median_ms(k6, 100, "prep_x3_kernel")
     k6_wall = wall_ms(k6, 100)
     k6_plain_ms = device_ms(k6_plain, 5)
-    k5_bytes = img.numel() * 4 + t.numel() * 2 + win["wy"].numel() * 4
-    k5_ops = 2 * int(win["y_len"].sum()) * w
-    k6_bytes = t.numel() * 2 + 5 * ph * pw * 2 + win["wx"].numel() * 4
-    k6_ops = 6 * 2 * int(win["x_len"].sum()) * ph + 7 * ph * pw
+    (k5_bytes, k5_ops), (k6_bytes, k6_ops) = prep_bytes_ops(args, win)
     # yardsticks: each pass as one dense float32 torch.matmul of the
     # bf16-rounded operands (the K6 one without the combine)
     by3t, bx_g, bx_xg, bx_xxg = fb._prep_matrices_on(args, device,
@@ -1346,15 +1491,7 @@ def main() -> int:
           f"480x640, padded): {k4_devs}")
     print(f"[2] K4 at the 1080p windowed level changes: "
           f"{check_resize(1080, 1920, FarnebackParams.windowed(), dev)}")
-    for name, (hw, preset) in {
-            "640x480 legacy (5, Ph, Pw) bf16": ((480, 640),
-                                                FarnebackParams.legacy()),
-            "1080p windowed (5, Ph, Pw) bf16": ((1080, 1920),
-                                                FarnebackParams.windowed()),
-            "640x480 subtract_average (lh, lw, 5) f32": (
-                (480, 640), dataclasses.replace(
-                    FarnebackParams.subtract_average(), warp_impl="pallas"))
-    }.items():
+    for name, (hw, preset) in PREP_CHECKS.items():
         prep_devs = check_prep(*hw, preset, dev)
         if name.startswith("640x480 legacy"):
             devs.update(prep_devs)
@@ -1395,6 +1532,14 @@ def main() -> int:
     hd_ms, hd_mag = run_stream_1080p(dev)
     print(f"[4] windowed stream 1920x1080: {hd_ms:.3f} ms/frame "
           f"({1e3 / hd_ms:.1f} fps), mean |flow| {hd_mag:.3f} px")
+    hd = stream_1080p_breakdown(dev)
+    print(f"[4] windowed stream 1920x1080, traced: "
+          f"{hd['device_ms_per_frame']:.3f} ms/frame of device kernels, "
+          f"{hd['launches_per_frame']:.0f} launches; K5 "
+          f"{hd['k5_us_per_frame']:.2f} us and K6 {hd['k6_us_per_frame']:.2f}"
+          f" us per frame ({hd['k5_records']} and {hd['k6_records']} "
+          f"records), {100 * hd['prep_share']:.1f}% of the device time; "
+          f"top kernels (us/frame) {hd['top_us_per_frame']}")
 
     tl_ms, tl_ev, tl_launches, _, _ = run_mode(dev, "timelines", FRAMES)
     print(f"[6] timelines 640x480, 201 vertices, {FRAMES} frames of "
@@ -1437,6 +1582,10 @@ def main() -> int:
               f"events), {1e3 / m_ms:.1f} fps; launches {m_n}")
         if m_n != want:
             raise AssertionError(f"{mode}: expected launches {want}")
+    held, peak = ring_step_memory(dev)
+    print(f"[7] averageVector 640x480: its state holds {held:.1f} MiB of "
+          f"device memory after init; the peak over 5 steps is {peak:.1f} "
+          f"MiB (ring_update writes a new ring each step)")
     pallas_cfg = ModeConfig(warp_impl="pallas")
     n = 10
     p_ms, p_ev, p_n, _ = run_dense_mode(dev, "subtructAverageVector", n,
@@ -1484,6 +1633,23 @@ def main() -> int:
               f"with the host), plain {r['plain_ms'] * 1e3:.2f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
               f"{'-' if lib is None else f'{lib * 1e3:.2f} us'}")
+    prep = {}
+    for name, (hw, preset) in PREP_PYRAMIDS.items():
+        levels, frame = prep_levels(*hw, preset, dev)
+        for r in levels:
+            print(f"[5] K5/K6 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]}"
+                  f" (canvas {r['canvas'][0]}x{r['canvas'][1]}, window "
+                  f"{r['window']}): K5 {r['k5_us']:.2f} us (min "
+                  f"{r['k5_us_min']:.2f}, max {r['k5_us_max']:.2f}), bound "
+                  f"{r['k5_bound_us']:.2f} ({r['k5_bound_by']}), issue floor "
+                  f"{r['k5_floor_us']:.2f}; K6 {r['k6_us']:.2f} us (min "
+                  f"{r['k6_us_min']:.2f}, max {r['k6_us_max']:.2f}), bound "
+                  f"{r['k6_bound_us']:.2f} ({r['k6_bound_by']}), issue floor "
+                  f"{r['k6_floor_us']:.2f}")
+        print(f"[5] K5/K6 per {name} frame: K5 {frame['k5_us']:.2f} us "
+              f"(bound {frame['k5_bound_us']:.2f}), K6 {frame['k6_us']:.2f} "
+              f"us (bound {frame['k6_bound_us']:.2f}) on the device")
+        prep[name] = (levels, frame)
     bench = bench_rows(dev)
     for b in bench:
         ms = "  ".join(f"{v} {t * 1e3:.2f} us" for v, t in b["ms"].items())
@@ -1500,6 +1666,13 @@ def main() -> int:
                                  r["us"], r["bound_us"]]
                                 for r in v["levels"]]
                             for k, v in k1_levels.items()}
+    for i, key in ((4, "k5"), (5, "k6")):
+        rows[i]["us_per_frame"] = {k: v[1][f"{key}_us"]
+                                   for k, v in prep.items()}
+        rows[i]["levels_us"] = {k: [[r["level"], r[f"{key}_us"],
+                                     r[f"{key}_bound_us"]] for r in v[0]]
+                                for k, v in prep.items()}
+    rows[4]["k5_k6_share_of_1080p_frame"] = hd["prep_share"]
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

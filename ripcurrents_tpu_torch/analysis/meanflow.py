@@ -6,10 +6,12 @@ compute_subtructAverageVectorWithWindow (main.cpp:1143-1153).
 
 A ring buffer keeps the reference's incremental update, "average -=
 old/N; average += new/N", so that its numbers drift as the reference's
-do. ``ring_update`` writes the new entry into the ring in place: the
-averageVector ring holds 300 full frames of flow (737 MB at 640x480), and
-a functional copy would move all of it every frame. The previous state's
-``buffer`` is therefore the same tensor as the new state's.
+do. ``ring_update`` is a function of its input state, as in the JAX
+package: it writes the new entry into a new buffer and leaves the input
+state's untouched, so a held state can be stepped again (a replay, a
+resume from a snapshot) with the same result. For the averageVector ring
+(300 full frames of flow, 737 MB at 640x480) that costs a second buffer
+alive during the step and one copy of the ring per frame.
 """
 
 from __future__ import annotations
@@ -44,14 +46,14 @@ def ring_init(capacity: int, shape, device="cpu",
 
 
 def ring_update(state: RingMean, value: torch.Tensor) -> RingMean:
-    """mean -= buf[i]/N; buf[i] = value (in place); mean += value/N;
-    i = (i+1) % N."""
+    """mean -= buf[i]/N; buf[i] = value; mean += value/N; i = (i+1) % N,
+    into a new buffer (state's is not written)."""
     n = state.buffer.shape[0]
     at = state.index.reshape(1).long()
     old = state.buffer.index_select(0, at)[0]
     mean = state.mean - old / n + value / n
-    state.buffer.index_copy_(0, at, value[None].to(state.buffer.dtype))
-    return RingMean(state.buffer, mean, (state.index + 1) % n)
+    buf = state.buffer.index_copy(0, at, value[None].to(state.buffer.dtype))
+    return RingMean(buf, mean, (state.index + 1) % n)
 
 
 class AverageVectorState(NamedTuple):

@@ -160,7 +160,8 @@ def _prep_matrices_on(args: tuple, device: torch.device,
 def _prep_windows_on(args: tuple, device: torch.device) -> dict:
     """K5/K6 windows of one level geometry on `device`."""
     return prep_kernel.windows_on(
-        prep_kernel.band_windows(*_level_prep_matrices(*args)), device)
+        prep_kernel.band_windows(*_level_prep_matrices(*args),
+                                 sms=prep_kernel.card_sms(device)), device)
 
 
 def poly_exp_level(img: torch.Tensor, lh: int, lw: int, n: int,

@@ -27,7 +27,7 @@ from ripcurrents_tpu_torch import kernels
 from ripcurrents_tpu_torch.config import LKParams
 
 MAX_LEVELS = 8               # pyramid images a launch takes (kMaxLevels)
-MAX_SHARED = 227 * 1024      # bytes of shared memory a Hopper block can use
+MAX_SHARED = kernels.MAX_SHARED
 PATCH_MARGIN = 8             # J patch margin around the window (kMargin)
 
 

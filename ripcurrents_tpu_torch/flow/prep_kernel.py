@@ -23,6 +23,15 @@ exact in float32, so the sum's order is the only rounding choice, and the
 plain versions sum in the same order: kernel (built with -fmad=false) and
 plain version agree bit for bit.
 
+The kernels tile the level's nonzero region and stage what a tile reads
+in shared memory; the host plans the tiles once per geometry
+(``y_plan``, ``x_plan``, kept in the windows' dict). A kernel thread
+sums over the union of the windows it shares a staged span with: the
+plan widens each window to that union, aligned to four source indices,
+and gives the widened taps weight zero. A zero product added to a float32
+sum leaves it unchanged (the sum starts at +0, and +0 + -0 is +0), so the
+widened sum equals the plain version's bit for bit.
+
 On CUDA tensors each wrapper launches its kernel once and counts the
 launch in ``<wrapper>.launches``; on CPU tensors it runs the plain
 version.
@@ -34,6 +43,27 @@ import numpy as np
 import torch
 
 from ripcurrents_tpu_torch import kernels
+
+# The warps a launch should give each SM before a thread takes two
+# columns (fewer warps, fewer loads per product); plans made off the card
+# count the H100's SMs.
+WARPS_PER_SM = 16
+H100_SMS = 132
+# K5: level rows per block (one warp each); K6: rows per tile (one lane
+# each), column groups per block (one warp each); K6's pad-zeroing blocks
+# take ZERO_ROWS canvas rows each. The kernels are built with these
+# numbers (``kernels.DEFINES``).
+Y_WARPS = kernels.DEFINES["prep_y"]["PREP_Y_WARPS"]
+X_ROWS = kernels.DEFINES["prep_x3"]["PREP_X_ROWS"]
+X_WARPS = kernels.DEFINES["prep_x3"]["PREP_X_WARPS"]
+ZERO_ROWS = kernels.DEFINES["prep_x3"]["PREP_X_ZERO_ROWS"]
+
+
+def card_sms(device: torch.device) -> int:
+    """The SMs of the card `device` lies on; H100_SMS for the CPU."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bf16_values(m: np.ndarray) -> np.ndarray:
@@ -64,7 +94,7 @@ def _windows(mats: list[np.ndarray]) -> tuple[np.ndarray, ...]:
 
 
 def band_windows(by3: np.ndarray, bx_g: np.ndarray, bx_xg: np.ndarray,
-                 bx_xxg: np.ndarray) -> dict:
+                 bx_xxg: np.ndarray, sms: int = H100_SMS) -> dict:
     """The windows of one level geometry, from the composed matrices of
     ``_level_prep_matrices`` (by3 (h, 3*ph), bx_* (w, pw)), each rounded
     to bf16 first: the y pass per output row of t, the x3 pass per output
@@ -72,9 +102,153 @@ def band_windows(by3: np.ndarray, bx_g: np.ndarray, bx_xg: np.ndarray,
     y_lo, y_len, wy = _windows([_bf16_values(by3).T])
     x_lo, x_len, wx = _windows([_bf16_values(m).T
                                 for m in (bx_g, bx_xg, bx_xxg)])
-    return {"y_lo": y_lo, "y_len": y_len, "wy": np.ascontiguousarray(wy[0].T),
-            "x_lo": x_lo, "x_len": x_len, "wx": wx,
-            "h": by3.shape[0], "w": bx_g.shape[0]}
+    win = {"y_lo": y_lo, "y_len": y_len, "wy": np.ascontiguousarray(wy[0].T),
+           "x_lo": x_lo, "x_len": x_len, "wx": wx,
+           "h": by3.shape[0], "w": bx_g.shape[0]}
+    win.update(y_plan(win, sms))
+    win.update(x_plan(win, sms))
+    return win
+
+
+# ---------------------------------------------------------------------------
+# Tile plans of K5 and K6 (host, once per geometry)
+# ---------------------------------------------------------------------------
+
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def _fits(shared: int, what: str) -> int:
+    if shared > kernels.MAX_SHARED:
+        raise ValueError(f"{what}: a tile needs {shared} bytes of shared "
+                         f"memory, over the block's {kernels.MAX_SHARED}")
+    return shared
+
+
+def _nonzero_range(mask: np.ndarray, what: str) -> tuple[int, int]:
+    """[a, b) of the True entries of mask, which must be contiguous."""
+    idx = np.flatnonzero(mask)
+    if idx.size == 0:
+        raise ValueError(f"{what}: no nonzero window")
+    a, b = int(idx[0]), int(idx[-1]) + 1
+    if idx.size != b - a:
+        raise ValueError(f"{what}: nonzero windows are not contiguous")
+    return a, b
+
+
+def _widen(lo, ln, wts, starts, count):
+    """Weights (k, n_out, count) of outputs o over widened windows that
+    start at starts[o] <= lo[o]: tap j of o's window (wts[i, j, o], k
+    weight sets sharing lo / ln) moves to index lo[o] - starts[o] + j;
+    every other entry is zero."""
+    k, big, n_out = wts.shape
+    out = np.zeros((k, n_out, count), np.float32)
+    shift = lo - starts
+    j = np.arange(big)
+    keep = j[None, :] < ln[:, None]                        # (n_out, big)
+    o_idx = np.broadcast_to(np.arange(n_out)[:, None], keep.shape)[keep]
+    dst = (shift[:, None] + j[None, :])[keep]
+    src = np.broadcast_to(j[None, :], keep.shape)[keep]
+    out[:, o_idx, dst] = wts[:, src, o_idx]
+    return out
+
+
+def y_plan(win: dict, sms: int = H100_SMS) -> dict:
+    """K5's tiles. A block takes ``Y_WARPS`` level rows (one warp each, all
+    three sections) of the nonzero rows [y_rows) by 32 * y_cols columns
+    of the frame, and stages the source rows its warps read; blocks past
+    the row tiles write the pad rows' zeros.
+
+    y_span (ph, 2): each level row's widened window [start, start +
+    count), count a multiple of 4 (0 for a pad row); wy_u (ph, 3, y_taps)
+    its weights per section; y_tiles (row tiles, 2): each tile's staged
+    source rows [first, first + n); y_stage = the most rows a tile
+    stages; y_shared its shared-memory bytes."""
+    lo, ln, wy = win["y_lo"], win["y_len"], win["wy"]
+    ph = lo.size // 3
+    lo3, ln3 = lo.reshape(3, ph), ln.reshape(3, ph)
+    a, b = _nonzero_range((ln3 > 0).any(axis=0), "K5 rows")
+    live = ln3 > 0
+    start = np.where(live, lo3, np.iinfo(np.int32).max).min(axis=0)
+    end = np.where(live, lo3 + ln3, 0).max(axis=0)
+    count = np.where(live.any(axis=0), _up(end - start, 4), 0)
+    start = np.where(live.any(axis=0), start, 0)
+    taps = int(count.max())
+    wy_u = np.zeros((ph, 3, taps), np.float32)
+    for k in range(3):
+        wy_u[:, k] = _widen(lo3[k], ln3[k], wy.T[None, :, k * ph:(k + 1) * ph],
+                            start, taps)[0]
+    tiles = []
+    for y0 in range(a, b, Y_WARPS):
+        y1 = min(y0 + Y_WARPS, b)
+        first = int(start[y0:y1].min())
+        tiles.append((first, int((start[y0:y1] + count[y0:y1]).max()) - first))
+    tiles = np.asarray(tiles, np.int32)
+    stage = int(tiles[:, 1].max())
+    cols = 2 if (b - a) * -(-win["w"] // 64) >= sms * WARPS_PER_SM else 1
+    shared = _fits(4 * (stage * 32 * cols + Y_WARPS * 3 * taps), "K5")
+    return {"y_span": np.stack([start, count], axis=1).astype(np.int32),
+            "wy_u": wy_u, "y_tiles": tiles, "y_rows": (a, b),
+            "y_taps": taps, "y_stage": stage, "y_cols": cols,
+            "y_zero_tiles": -(-(ph - (b - a)) // Y_WARPS),
+            "y_shared": shared}
+
+
+def x_plan(win: dict, sms: int = H100_SMS) -> dict:
+    """K6's tiles. Columns [x_cols_nz) with a window are cut into groups
+    of x_cols (1 or 2) adjacent columns, one warp each, lanes over
+    ``X_ROWS`` output rows; a block takes ``X_WARPS`` groups of a row
+    tile of the nonzero rows (K5's y_rows) and stages the three t
+    sections' rows over the source columns its groups read. The first
+    blocks of the grid write the canvas pads' zeros, ``ZERO_ROWS`` rows
+    each.
+
+    x_span (groups, 2): each group's widened window [start, start +
+    count), start and count multiples of 4; wx_u (groups, 3, x_cols,
+    x_taps) its weights; x_tiles (column tiles, 2): each tile's staged
+    source columns [first, first + n), first and n multiples of 8;
+    x_pitch the staged row length (> every n, 4 mod 8 in bf16 values, so
+    the 8-byte reads of a half-warp's 16 rows fall on distinct bank
+    pairs); x_shared the shared-memory bytes."""
+    lo, ln, wx = win["x_lo"], win["x_len"], win["wx"]
+    pw = lo.size
+    a, b = _nonzero_range(ln > 0, "K6 columns")
+    ya, yb = win["y_rows"]
+    row_tiles = -(-(yb - ya) // X_ROWS)
+    cols = 2 if row_tiles * -(-(b - a) // 2) >= sms * WARPS_PER_SM else 1
+    groups = -(-(b - a) // cols)
+    col = a + np.arange(groups * cols).reshape(groups, cols)
+    real = col < b
+    colc = np.minimum(col, b - 1)
+    start = (np.where(real, lo[colc], np.iinfo(np.int32).max).min(axis=1)
+             // 4) * 4
+    end = np.where(real, lo[colc] + ln[colc], 0).max(axis=1)
+    count = _up(end - start, 4)
+    taps = int(count.max())
+    wx_u = np.zeros((groups, 3, cols, taps), np.float32)
+    for c in range(cols):
+        cc = colc[:, c]
+        wide = _widen(lo[cc] * real[:, c] + start * ~real[:, c],
+                      ln[cc] * real[:, c], wx[:, :, cc], start, taps)
+        wx_u[:, :, c] = wide.transpose(1, 0, 2)
+    tiles = []
+    for g0 in range(0, groups, X_WARPS):
+        g1 = min(g0 + X_WARPS, groups)
+        first = int(start[g0:g1].min()) // 8 * 8
+        tiles.append((first, _up(int((start[g0:g1] + count[g0:g1]).max())
+                                 - first, 8)))
+    tiles = np.asarray(tiles, np.int32)
+    pitch = int(tiles[:, 1].max()) + 4
+    stage = max(3 * X_ROWS * pitch * 2, 5 * X_ROWS * (X_WARPS * cols + 1) * 4)
+    shared = _fits(stage + 4 * X_WARPS * 3 * cols * taps, "K6")
+    ph = win["y_span"].shape[0]
+    pads = (ya, yb, a, b) != (0, ph, 0, pw)
+    return {"x_span": np.stack([start, count], axis=1).astype(np.int32),
+            "wx_u": wx_u, "x_tiles": tiles, "x_cols_nz": (a, b),
+            "x_taps": taps, "x_pitch": pitch, "x_cols": cols,
+            "x_row_tiles": row_tiles,
+            "x_zero_blocks": -(-ph // ZERO_ROWS) if pads else 0,
+            "x_shared": shared}
 
 
 def windows_on(win: dict, device: torch.device) -> dict:
@@ -116,14 +290,17 @@ def prep_y(img: torch.Tensor, win: dict) -> torch.Tensor:
     -> t (3*ph, w) bf16."""
     h, w = win["h"], win["w"]
     wy = win["wy"]
-    rows, ly = wy.shape
+    rows = wy.shape[0]
     _require(img, "img", torch.float32, (h, w))
     if not kernels.launches_on(img.device):
         return prep_y_plain(img, win["y_lo"], wy)
     t = torch.empty((rows, w), dtype=torch.bfloat16, device=img.device)
+    a, b = win["y_rows"]
     err = kernels.entry("prep_y")(
-        img.data_ptr(), win["y_lo"].data_ptr(), win["y_len"].data_ptr(),
-        wy.data_ptr(), t.data_ptr(), h, w, rows, ly,
+        img.data_ptr(), win["y_span"].data_ptr(), win["wy_u"].data_ptr(),
+        win["y_tiles"].data_ptr(), t.data_ptr(), h, w, rows // 3, a, b,
+        win["y_taps"], len(win["y_tiles"]), win["y_zero_tiles"],
+        win["y_cols"], win["y_shared"],
         torch.cuda.current_stream(img.device).cuda_stream)
     kernels.check(err, "prep_y")
     prep_y.launches += 1
@@ -174,7 +351,7 @@ def prep_x3(t: torch.Tensor, win: dict, ph: int, ig: tuple,
     (3*ph, w) bf16 -> (5, ph, pw) if channels_first else (ph, pw, 5), in
     out_dtype (bf16 or float32)."""
     wx = win["wx"]
-    _, lx, pw = wx.shape
+    pw = wx.shape[2]
     w = win["w"]
     _require(t, "t", torch.bfloat16, (3 * ph, w))
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -185,11 +362,15 @@ def prep_x3(t: torch.Tensor, win: dict, ph: int, ig: tuple,
                              channels_first)
     shape = (5, ph, pw) if channels_first else (ph, pw, 5)
     out = torch.empty(shape, dtype=out_dtype, device=t.device)
+    (ya, yb), (xa, xb) = win["y_rows"], win["x_cols_nz"]
     err = kernels.entry("prep_x3")(
-        t.data_ptr(), win["x_lo"].data_ptr(), win["x_len"].data_ptr(),
-        wx.data_ptr(), out.data_ptr(), w, ph, pw, lx,
+        t.data_ptr(), win["x_span"].data_ptr(), win["wx_u"].data_ptr(),
+        win["x_tiles"].data_ptr(), out.data_ptr(), w, ph, pw, ya, yb, xa, xb,
+        win["x_taps"], win["x_pitch"], win["x_row_tiles"],
+        len(win["x_tiles"]), win["x_zero_blocks"], win["x_cols"],
         *(float(v) for v in ig), int(out_dtype == torch.bfloat16),
-        int(channels_first), torch.cuda.current_stream(t.device).cuda_stream)
+        int(channels_first), win["x_shared"],
+        torch.cuda.current_stream(t.device).cuda_stream)
     kernels.check(err, "prep_x3")
     prep_x3.launches += 1
     return out

@@ -33,6 +33,15 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
+# Shared memory a Hopper block can take (with cudaFuncSetAttribute).
+MAX_SHARED = 227 * 1024
+# Per-source -D defines: K5's and K6's tile sizes, which their host plans
+# (flow/prep_kernel.py) read from here.
+DEFINES = {
+    "prep_y": {"PREP_Y_WARPS": 8},
+    "prep_x3": {"PREP_X_ROWS": 32, "PREP_X_WARPS": 8, "PREP_X_ZERO_ROWS": 4},
+}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -53,10 +62,11 @@ _ENTRIES = {
     "resize_cf_padded": ("resize_cf_padded", "resize_cf_padded_launch",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "prep_y": ("prep_y", "prep_y_launch",
-               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+               [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                _P]),
     "prep_x3": ("prep_x3", "prep_x3_launch",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I,
-                 _P]),
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _P]),
     "warp5_shift": ("warp5_shift", "warp5_shift_launch",
                     [_P, _P, _P, _I, _I, _I, _P]),
     "warp_tiles_halo": ("warp_tiles", "warp_tiles_halo_launch",
@@ -82,9 +92,14 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(stem: str) -> list[str]:
+    return [*NVCC_FLAGS,
+            *(f"-D{k}={v}" for k, v in DEFINES.get(stem, {}).items())]
+
+
 def _lib_path(stem: str) -> pathlib.Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(_flags(stem)).encode()).hexdigest()
     return BUILD_DIR / f"{stem}-{digest[:16]}.so"
 
 
@@ -99,7 +114,8 @@ def build() -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+        cmd = [_nvcc(), *_flags(stem), "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -207,7 +207,13 @@ def flow_red_points(cfg: ModeConfig, device="cuda"):
 def _advect_and_draw_trails(seeds, overlay_u8, flow, framecount, cfg,
                             dt=0.1, iters=100, upper=45.0):
     """Advance seeds through `flow`, drawing their trails onto the
-    persistent 8-bit canvas with intensity framecount*255/totalframes."""
+    persistent 8-bit canvas with intensity framecount*255/totalframes.
+    Raises ValueError when cfg.total_frames is not positive (a source
+    without a length gives the runner no count)."""
+    if cfg.total_frames <= 0:
+        raise ValueError("trails are shaded by the clip's frame count: give "
+                         "ModeConfig.total_frames for frames without a "
+                         "length")
     res = advect.streamlines(seeds, flow, dt, iters, upper)
     shade = framecount.to(torch.float32) * 255.0 / cfg.total_frames
     shade = torch.clamp(shade, 0, 255).to(torch.uint8)

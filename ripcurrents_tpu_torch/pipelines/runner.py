@@ -6,6 +6,11 @@ each is uploaded, stepped, and its output frame yielded as a tensor on
 the device. There is no video decode here and no chunked scan: PyTorch
 runs eagerly, so the loop is a plain one and a step never waits for the
 device.
+
+``ModeConfig.total_frames`` (the reference's CAP_PROP_FRAME_COUNT) left
+at 0 is taken from the source's length, at least 1, as the JAX runner
+takes it from the video. The modes that shade their trails by it raise
+on a source without a length unless the config gives the count.
 """
 
 from __future__ import annotations
@@ -44,17 +49,21 @@ def run_frames(mode: str, frames: Iterable, cfg: ModeConfig = ModeConfig(),
     "cpu" for the plain PyTorch versions. `stats`, when given, is filled
     when the iterator ends or is closed: frames stepped, the mode's last
     state, and seconds from the first step to the device finishing the
-    last one (the clock is read after a device synchronize)."""
+    last one (the clock is read after a device synchronize).
+
+    cfg.total_frames <= 0 takes max(len(frames), 1) where `frames` has a
+    length; else it stays 0, and the modes that shade their trails by it
+    raise ValueError at their first step."""
     dev = resolve_device("cuda" if device is None else device)
     if mode not in MODES:
         raise KeyError(f"unknown mode {mode!r}; ported: {sorted(MODES)}")
+    if cfg.total_frames <= 0 and hasattr(frames, "__len__"):
+        cfg = dataclasses.replace(cfg, total_frames=max(len(frames), 1))
     it = iter(frames)
     try:
         first = next(it)
     except StopIteration:
         return
-    if cfg.total_frames == 0 and hasattr(frames, "__len__"):
-        cfg = dataclasses.replace(cfg, total_frames=len(frames))
     init, step = MODES[mode](cfg, device=dev)
     state = init(first)
     t0 = time.perf_counter()

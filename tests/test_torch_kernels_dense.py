@@ -40,12 +40,30 @@ def card():
     ((1080, 1920), "windowed", True),          # the 1080p windowed stream
     ((480, 640), "subtract_average", False),   # the portable engine
     ((75, 107), "legacy", True),               # ragged, width not /128
+    ((480, 640), "android", True),             # 4 levels, a 260-tap L3
+    ((40, 300), "legacy", True),               # one-tile coarse levels
 ])
 def test_prep_kernels_match_plain_versions(card, hw, preset, channels_first):
     cs = _chip_smoke()
     p = dataclasses.replace(getattr(FarnebackParams, preset)(),
                             warp_impl="fused" if channels_first else "pallas")
     devs = cs.check_prep(*hw, p, card)
+    assert devs["k5_vs_plain"] <= cs.PREP_TOL
+    assert devs["k6_vs_plain"] <= cs.PREP_TOL
+
+
+def test_prep_kernels_pair_columns_over_odd_widths(card, monkeypatch):
+    """K5 and K6 with two columns a thread forced at every level of the
+    75x107 pyramid (level widths 27, 54 and 107: the last K6 pair of an
+    odd width holds one real column)."""
+    from ripcurrents_tpu_torch.flow import prep_kernel
+    monkeypatch.setattr(prep_kernel, "WARPS_PER_SM", 0)
+    cs = _chip_smoke()
+    cs.fb._prep_windows_on.cache_clear()
+    try:
+        devs = cs.check_prep(75, 107, FarnebackParams.legacy(), card)
+    finally:
+        cs.fb._prep_windows_on.cache_clear()
     assert devs["k5_vs_plain"] <= cs.PREP_TOL
     assert devs["k6_vs_plain"] <= cs.PREP_TOL
 
