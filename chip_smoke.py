@@ -19,10 +19,13 @@ Every phase passes or raises (the script catches nothing):
    (bres 1, 640-wide subcolumns, Gaussian 10); K1 at every level of the
    legacy and dense-mode 640x480 pyramids and of the 1080p windowed one,
    with its cluster size S, CTAs, device time (median of 50 launches) and
-   bound per level and its device time per frame; K4 (resize_cf_padded)
-   against its plain version and the dense two-matmul form at every level
-   change of both; K3 (lk_track) against its plain version at 640x480
-   with 201 points, 1280 points and 2 streams x 201 points, border and
+   bound per level and its device time per frame; K2 at every level (its
+   tile per level; pads zeroed, and at level 0 also not) and K4
+   (resize_cf_padded) against its plain version and the dense two-matmul
+   form at every level change of the eight ``BLUR_CHECKS`` geometries,
+   both bit for bit (``K2_TOL``, ``K4_TOL`` 0.0); K3 (lk_track) against
+   its plain version at 640x480 with 201 points, 1280 points and 2
+   streams x 201 points, border and
    out-of-image points included, and on one level with points that move
    past its J patch's margin; K5 (prep_y) and K6 (prep_x3) against
    their plain versions and the dense matmul form at every level of the
@@ -42,7 +45,8 @@ Every phase passes or raises (the script catches nothing):
    K5 and K6 3 times per frame; then the whole step at 192x256 on the card
    against the same step on the CPU (plain versions);
 4. the windowed Farneback stream at 1920x1080, and one torch.profiler
-   trace of it: device time per frame and the share K5 and K6 take;
+   trace of it: device time per frame, the share K5 and K6 take and K2's
+   and K4's device time per frame;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
    version, its bound and a library call, as one JSON line (K8 in its
    frame layout, the tiled engine's level 0); K3 as the median and spread
@@ -50,6 +54,10 @@ Every phase passes or raises (the script catches nothing):
    per-point chain of iterations and a latency row beside its bound; K5
    and K6 at every level of the legacy 640x480 and windowed 1080p
    pyramids (median of 50 launches, bound, issue floor) and per frame;
+   K2 at every level and K4 at every level change of the legacy and
+   windowed 640x480 and windowed 1080p pyramids (``blur_upsample_frames``:
+   median of 50 launches, bound, issue floor) and per frame; K7 and
+   ``grid_sample`` alternated, K7 / grid_sample / grid_sample / K7 twice;
 6. the particle modes through ``run_frames`` at 640x480 from 1280x720
    frames: ``timelines`` (201 vertices, 40 frames, K3 once per frame),
    ``streaklines`` (1280 vertices), ``populationMap`` and
@@ -75,6 +83,13 @@ Every phase passes or raises (the script catches nothing):
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
 that. Without a card the script exits non-zero before printing a result.
+
+``python3 chip_smoke.py --compare-parent DIR``, where DIR holds only an
+older tree's ``ripcurrents_tpu_torch/`` (``git archive <commit>
+ripcurrents_tpu_torch | tar -x -C DIR``), instead times K2 and K4
+(``blur_upsample_frames``) in that tree and in this one, alternating
+parent / change / change / parent twice, each run a fresh process that
+builds its own kernels.
 """
 
 from __future__ import annotations
@@ -118,7 +133,7 @@ F32_FLOPS = 67e12
 # agree bit for bit; the bounds leave room for one bf16 rounding flip.
 K1_REL = 2.0 ** -7          # M: one bf16 ULP of the plain value
 K1_FRAC = 1e-4              # ... on at most this share of elements
-K2_TOL = 1e-5               # flow: |d| <= K2_TOL * (1 + |plain|)
+K2_TOL = 0.0                # flow: |d| <= K2_TOL * (1 + |plain|)
 LEVEL_TOL = 2e-3            # level flow: rtol = atol (the JAX package's
                             # level-vs-chain bound)
 
@@ -198,6 +213,30 @@ PREP_CHECKS = {
     "75x107 legacy (ragged)": ((75, 107), FarnebackParams.legacy()),
     "40x300 legacy": ((40, 300), FarnebackParams.legacy()),
     "640x480 android (4 levels)": ((480, 640), FarnebackParams.android()),
+}
+# The geometries K2 and K4 are held to their plain versions at, every level
+# (K2) and every level change (K4): the main paths' pyramids (legacy box 3,
+# the dense modes' windowed Gaussian 10 and subtract_average's Gaussian
+# 20, the 1080p stream), android's 4 levels (box 5), a ragged width, the
+# 40x300 pyramid, and subtract_average at 40x300, whose 10- and 20-row
+# levels are shorter than its 21-row window.
+BLUR_CHECKS = {
+    "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
+    "windowed 640x480": ((480, 640), FarnebackParams.windowed()),
+    "subtract_average 640x480": ((480, 640),
+                                 FarnebackParams.subtract_average()),
+    "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
+    "android 640x480": ((480, 640), FarnebackParams.android()),
+    "legacy 75x107": ((75, 107), FarnebackParams.legacy()),
+    "legacy 40x300": ((40, 300), FarnebackParams.legacy()),
+    "subtract_average 40x300": ((40, 300),
+                                FarnebackParams.subtract_average()),
+}
+# The pyramids whose every level K2 and every level change K4 are timed at.
+BLUR_PYRAMIDS = {
+    "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
+    "windowed 640x480": ((480, 640), FarnebackParams.windowed()),
+    "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
 }
 # K3's launches timed one by one for its median and spread.
 LK_REPS = 30
@@ -391,6 +430,49 @@ def check_resize(h, w, p: FarnebackParams, device):
         worst["k4_vs_plain"] = max(worst["k4_vs_plain"], d_plain)
         worst["k4_vs_dense"] = max(worst["k4_vs_dense"], d_dense)
     return worst
+
+
+def blur_inputs(h, w, p: FarnebackParams, device, k):
+    """K2's inputs at level k of preset p at (h, w): M from K1 (its plain
+    version on the CPU) on ``level_inputs``, the level's true size, and
+    its iterations there."""
+    wr, it_sched = fb._residual_schedule(h, w, p)
+    prep, flow = level_inputs(h, w, p, device, k)
+    m = fu.farneback_update(prep, flow, fb._per_level(wr, k))
+    return m, prep["hw"], fb._level_iters(p, it_sched, k)
+
+
+def check_blur(h, w, p: FarnebackParams, device):
+    """K2 against its plain version at every level of preset p at (h, w),
+    with the pads zeroed (the engine's call) and, at level 0, without.
+    Returns the largest deviation and the levels' (true size, half-width,
+    (tile rows, cols, strip)); raises past K2_TOL or on a nonzero pad."""
+    half = p.winsize // 2
+    worst, levels = 0.0, []
+    for k in range(p.levels, -1, -1):
+        m, (lh, lw), _ = blur_inputs(h, w, p, device, k)
+        hp, wp = m.shape[1:]
+        wy, wx = fu._blur_weights_on(hp, lh, p.winsize, p.gaussian, device)
+        for zero_pads in (True, False) if k == 0 else (True,):
+            got = fu.farneback_blur_solve(m, (lh, lw), p.winsize, p.gaussian,
+                                          zero_pads)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)   # a fault shows here
+            plain = fu.farneback_blur_solve_plain(m, (lh, lw), wy, wx,
+                                                  zero_pads)
+            d = (got - plain).abs().max().item()
+            pads = got[:, lh:, :].abs().sum().item() + \
+                got[:, :, lw:].abs().sum().item() if zero_pads else 0.0
+            if not d <= K2_TOL or pads != 0.0:
+                raise AssertionError(f"K2 disagrees at level {lh}x{lw} of "
+                                     f"{h}x{w} (half {half}, zero_pads "
+                                     f"{zero_pads}): max |d| {d}, pads "
+                                     f"{pads}")
+            worst = max(worst, d)
+        plan = fu.blur_plan(hp, wp, half, (lh, lw))
+        levels.append(((lh, lw), half, (plan["rows"], plan["cols"],
+                                        plan["strip"])))
+    return {"k2_vs_plain": worst, "levels": levels}
 
 
 def lk_points(n, h, w, seed, win=50):
@@ -812,8 +894,12 @@ def stream_1080p_breakdown(device, frames=5, warm=2):
         return sum(us for us, _ in hits), sum(n for _, n in hits)
 
     (k5_us, k5_n), (k6_us, k6_n) = of("prep_y_kernel"), of("prep_x3_kernel")
+    (k2_us, k2_n), (k4_us, k4_n) = of("farneback_blur_solve_kernel"), \
+        of("resize_cf_padded_kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {"device_ms_per_frame": total / frames / 1e3,
+            "k2_us_per_frame": k2_us / frames, "k2_records": k2_n,
+            "k4_us_per_frame": k4_us / frames, "k4_records": k4_n,
             "k5_us_per_frame": k5_us / frames, "k5_records": k5_n,
             "k6_us_per_frame": k6_us / frames, "k6_records": k6_n,
             "prep_share": (k5_us + k6_us) / total,
@@ -1098,25 +1184,55 @@ def device_ms(fn, reps):
     return us / 1e3 / reps
 
 
-def device_times(fn, reps, name):
+def event_times(fn, reps, hold_cycles=20_000_000):
+    """Device time in ms of each of `reps` warm calls of fn, from CUDA
+    events recorded on the stream just before and just after each call:
+    the time of everything the call launches plus the events' own cost,
+    which on an H100 added ~4 us to K2's 2.9 and 7.1 us. A spin kernel of
+    `hold_cycles` (~10 ms) runs first, so the host has queued every call
+    before the device reaches them and no host time falls between two
+    events. A fallback that keeps the run going, not a time to compare."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(hold_cycles)
+    for s, e in marks:
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) for s, e in marks]
+
+
+def device_times(fn, reps, name, fallback=True):
     """Device time in ms of each of `reps` warm calls of fn, which launches
     one kernel whose name holds `name` (torch.profiler events). A session
     that records fewer than half of the launches (the profiler dropped some
-    in long runs) is repeated, at most twice."""
+    in long runs) is repeated, at most twice; when all three lose them and
+    `fallback` is set (fn launches that one kernel only), the calls are
+    timed by ``event_times`` instead and the script says so."""
     fn()
     torch.cuda.synchronize()
+    seen = set()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and
-              name in e.name]
+        cuda = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        ts = [e.time_range.elapsed_us() / 1e3 for e in cuda if name in e.name]
         if len(ts) >= reps // 2:
             return ts
-    raise AssertionError(f"profiled {len(ts)} launches of {name}, "
-                         f"expected {reps}")
+        seen |= {e.name[:40] for e in cuda}
+    if not fallback:
+        raise AssertionError(f"profiled {len(ts)} launches of {name}, "
+                             f"expected {reps}")
+    print(f"    torch.profiler recorded {len(ts)} of {reps} launches of "
+          f"{name} in each of 3 sessions (it recorded {sorted(seen)}); "
+          f"timed by CUDA events around each call instead", flush=True)
+    return event_times(fn, reps)
 
 
 def lk_timing(device, pts, p: LKParams = LKParams.particles(),
@@ -1137,7 +1253,7 @@ def median_ms(fn, reps, *names):
     records the profiler dropped (a sum over the session would)."""
     total = 0.0
     for name in names:
-        t = sorted(device_times(fn, reps, name))
+        t = sorted(device_times(fn, reps, name, fallback=len(names) == 1))
         total += t[len(t) // 2]
     return total
 
@@ -1208,6 +1324,159 @@ def prep_levels(h, w, p: FarnebackParams, device, reps=50):
     return rows, frame
 
 
+def blur_bytes_ops(hw, hpwp, half):
+    """K2's (bytes, operations, instructions) at one level: M's true region
+    read once (5 bf16 channels) and the flow written once with its pads (2
+    f32 channels); a product and an add per tap and channel in the y pass
+    for every mid value the x pass reads (hp rows by the true width) and
+    in the x pass for every output, and ~12 operations of the solve; each
+    tap's product and add one FMA instruction (its product is exact)."""
+    (h, w), (hp, wp) = hw, hpwp
+    taps = 5 * (2 * half + 1) * (hp * w + hp * wp)
+    return (5 * 2 * h * w + 2 * 4 * hp * wp, 2 * taps + 12 * hp * wp,
+            taps + 12 * hp * wp)
+
+
+def upsample_bytes_ops(src_true, dst_pad, channels=2):
+    """K4's (bytes, operations, instructions) at one level change: the
+    source's true region read once and the padded output written once
+    (f32, 2 channels); per output and channel 3 products and 3 FMAs (9
+    flops, 6 instructions)."""
+    out = channels * dst_pad[0] * dst_pad[1]
+    return (4 * (channels * src_true[0] * src_true[1] + out), 9 * out,
+            6 * out)
+
+
+def _timed(fn, reps, name):
+    """{us, us_min, us_max} of `reps` profiled launches of kernel `name`."""
+    t = sorted(device_times(fn, reps, name))
+    return {"us": t[len(t) // 2] * 1e3, "us_min": t[0] * 1e3,
+            "us_max": t[-1] * 1e3}
+
+
+def blur_levels(h, w, p: FarnebackParams, device, reps=50):
+    """K2 at every level of preset p at (h, w), coarsest first: its device
+    us per launch (median, min and max of `reps` profiled launches) beside
+    its bound, max(bytes / HBM, ops / F32), and its issue floor,
+    instructions / (F32 / 2) (``blur_bytes_ops``: an FMA a tap).
+    Returns (one dict per level, the sums per frame: each level times its
+    iterations, the preset's K2 launches there)."""
+    half = p.winsize // 2
+    rows = []
+    for k in range(p.levels, -1, -1):
+        m, hw, iters = blur_inputs(h, w, p, device, k)
+        hpwp = tuple(m.shape[1:])
+        nbytes, ops, instr = blur_bytes_ops(hw, hpwp, half)
+        row = {"level": k, "hw": hw, "hpwp": hpwp, "half": half,
+               "iterations": iters,
+               "bound_us": max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) *
+               1e6,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
+               ops / F32_FLOPS else "operations",
+               "floor_us": instr / (F32_FLOPS / 2) * 1e6}
+        row.update(_timed(lambda: fu.farneback_blur_solve(
+            m, hw, p.winsize, p.gaussian, True), reps,
+            "farneback_blur_solve_kernel"))
+        rows.append(row)
+    frame = {key: sum(r[key] * r["iterations"] for r in rows)
+             for key in ("us", "bound_us", "floor_us")}
+    return rows, frame
+
+
+def upsample_levels(h, w, p: FarnebackParams, device, reps=50):
+    """K4 at every level change of preset p at (h, w), coarsest first:
+    device us per launch (median, min and max of `reps` profiled launches)
+    beside its bound and its issue floor (instructions at F32 / 2).
+    Returns (one dict per level change, the sums per frame)."""
+    rows = []
+    for i, (st, dt, sp, dp, scale) in enumerate(upsample_geometries(h, w,
+                                                                    p)):
+        flow = _padded_flow(st, sp, device, seed=i)
+        nbytes, ops, instr = upsample_bytes_ops(st, dp)
+        row = {"src": st, "dst": dt, "dst_pad": dp,
+               "bound_us": max(nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS) *
+               1e6,
+               "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >=
+               ops / F32_FLOPS else "operations",
+               "floor_us": instr / (F32_FLOPS / 2) * 1e6}
+        row.update(_timed(lambda: img_ops.resize_bilinear_cf_padded(
+            flow, st, dt, dp, scale), reps, "resize_cf_padded_kernel"))
+        rows.append(row)
+    frame = {key: sum(r[key] for r in rows)
+             for key in ("us", "bound_us", "floor_us")}
+    return rows, frame
+
+
+def blur_upsample_frames(device, reps=50):
+    """K2's and K4's per-level rows and per-frame sums at every pyramid of
+    BLUR_PYRAMIDS: {name: {"k2": (levels, frame), "k4": (levels, frame)}}.
+    Uses only what the parent tree's package also has, so that
+    ``compare_parent`` can time both trees with it."""
+    return {name: {"k2": blur_levels(*hw, preset, device, reps),
+                   "k4": upsample_levels(*hw, preset, device, reps)}
+            for name, (hw, preset) in BLUR_PYRAMIDS.items()}
+
+
+def compare_parent(parent: str, rounds=2):
+    """Time K2 and K4 (``blur_upsample_frames``) in the parent tree at
+    `parent` (a directory holding only its ``ripcurrents_tpu_torch/``) and in
+    this one, alternating parent / change / change / parent (`rounds`
+    such pairs of pairs), each run a fresh process that builds its own
+    kernels. Prints and returns the per-frame sums of each run."""
+    import os
+    import pathlib
+    here = pathlib.Path(__file__).resolve().parent
+    trees = {"parent": pathlib.Path(parent).resolve(), "change": here}
+    # the tree's package comes first on the path, this chip_smoke.py after
+    code = ("import json, sys, torch; sys.path.append(%r); "
+            "import chip_smoke as cs; "
+            "print('RESULT ' + json.dumps(cs.blur_upsample_frames("
+            "torch.device('cuda'))))")
+    runs = []
+    for _ in range(rounds):
+        for name in ("parent", "change", "change", "parent"):
+            env = dict(os.environ, PYTHONPATH=str(trees[name]))
+            out = subprocess.run([sys.executable, "-c", code % str(here)],
+                                 cwd=trees[name], env=env, check=True,
+                                 capture_output=True, text=True).stdout
+            res = json.loads(out.split("RESULT ", 1)[1])
+            frames = {geo: {k: v[k][1]["us"] for k in ("k2", "k4")}
+                      for geo, v in res.items()}
+            levels = {geo: {k: [round(r["us"], 2) for r in v[k][0]]
+                            for k in ("k2", "k4")}
+                      for geo, v in res.items()}
+            print(f"[compare] {name}: us per frame {frames}; per level "
+                  f"{levels}", flush=True)
+            runs.append({"tree": name, "frames": frames, "levels": levels})
+    return runs
+
+
+def k7_against_grid_sample(device, reps=50, rounds=2):
+    """K7 (640x480, budget 16, flows within +-12 px) and grid_sample on
+    the same table and flow, alternating K7 / grid_sample / grid_sample /
+    K7 `rounds` times: the median of each kernel's own `reps` profiled
+    launches per turn."""
+    h, w = 480, 640
+    r1, wflow = warp_inputs(h, w, device, 12.0)
+    r1cf = r1.permute(2, 0, 1)[None].contiguous()
+    ys, xs = fb._grid(h, w, device)
+    grid = torch.stack([(xs + wflow[..., 0]) * (2.0 / (w - 1)) - 1,
+                        (ys + wflow[..., 1]) * (2.0 / (h - 1)) - 1],
+                       dim=-1)[None]
+    turns = {"k7": (lambda: warp_kernel.warp5_shift(r1, wflow, 16),
+                    "warp5_shift_kernel"),
+             # cuDNN's bilinear_sampler_fw or ATen's grid_sampler_2d
+             "grid_sample": (lambda: F.grid_sample(
+                 r1cf, grid, mode="bilinear", padding_mode="zeros",
+                 align_corners=True), "sampler")}
+    got = {"k7": [], "grid_sample": []}
+    for _ in range(rounds):
+        for name in ("k7", "grid_sample", "grid_sample", "k7"):
+            fn, kernel = turns[name]
+            got[name].append(_timed(fn, reps, kernel)["us"])
+    return got
+
+
 def kernel_rows(device, launches, devs):
     """Timing rows at the 640x480 shapes: K1, K2, K4, K5 and K6 at level 0
     of the legacy preset, K3 on the 201 timeline vertices, K7 at level 0 of
@@ -1218,7 +1487,6 @@ def kernel_rows(device, launches, devs):
     bres = _bres(p, h, w)
     prep, flow = level_inputs(h, w, p, device)
     hp, wp = prep["hpwp"]
-    px = hp * wp
     m = fu.farneback_update(prep, flow, bres)
     args = (prep["p0"], prep["p1"], flow, prep["counts"], prep["hw"],
             prep["th"], prep["sw"], bres)
@@ -1236,8 +1504,7 @@ def kernel_rows(device, launches, devs):
     k2_wall = wall_ms(k2, 100)
     k2_plain = device_ms(lambda: fu.farneback_blur_solve_plain(
         m, (h, w), wy, wx, True), 10)
-    k2_bytes = px * (5 * 2 + 2 * 4)
-    k2_ops = px * (5 * 2 * nt * 2 + 12)
+    k2_bytes, k2_ops, _ = blur_bytes_ops((h, w), (hp, wp), nt // 2)
     # library yardstick for K2's blur: one grouped conv2d of the 5 bf16
     # channels with the 2-D window (replicate padding done beforehand).
     k2d = (wy[h // 2][:, None] * wx[None, :]).to(torch.bfloat16)
@@ -1485,12 +1752,15 @@ def main() -> int:
     l0 = k1_levels["legacy 640x480"]["levels"][-1]
     if l0["ctas"] < 120:
         raise AssertionError(f"K1 at 640x480 L0 launches {l0['ctas']} CTAs")
-    k4_devs = check_resize(480, 640, FarnebackParams.legacy(), dev)
-    devs.update(k4_devs)
-    print(f"[2] K4 at the legacy level changes (120x160 -> 240x320 -> "
-          f"480x640, padded): {k4_devs}")
-    print(f"[2] K4 at the 1080p windowed level changes: "
-          f"{check_resize(1080, 1920, FarnebackParams.windowed(), dev)}")
+    for name, (hw, preset) in BLUR_CHECKS.items():
+        k2_devs = check_blur(*hw, preset, dev)
+        k4_devs = check_resize(*hw, preset, dev)
+        if name == "legacy 640x480":
+            devs["k2_max"] = max(devs["k2_max"], k2_devs["k2_vs_plain"])
+            devs.update(k4_devs)
+        print(f"[2] K2 at every level of {name} (half {preset.winsize // 2}"
+              f"; level, tile): {k2_devs}; K4 at its level changes: "
+              f"{k4_devs}")
     for name, (hw, preset) in PREP_CHECKS.items():
         prep_devs = check_prep(*hw, preset, dev)
         if name.startswith("640x480 legacy"):
@@ -1538,8 +1808,10 @@ def main() -> int:
           f"{hd['launches_per_frame']:.0f} launches; K5 "
           f"{hd['k5_us_per_frame']:.2f} us and K6 {hd['k6_us_per_frame']:.2f}"
           f" us per frame ({hd['k5_records']} and {hd['k6_records']} "
-          f"records), {100 * hd['prep_share']:.1f}% of the device time; "
-          f"top kernels (us/frame) {hd['top_us_per_frame']}")
+          f"records), {100 * hd['prep_share']:.1f}% of the device time; K2 "
+          f"{hd['k2_us_per_frame']:.2f} us ({hd['k2_records']} records) and "
+          f"K4 {hd['k4_us_per_frame']:.2f} us ({hd['k4_records']}) per "
+          f"frame; top kernels (us/frame) {hd['top_us_per_frame']}")
 
     tl_ms, tl_ev, tl_launches, _, _ = run_mode(dev, "timelines", FRAMES)
     print(f"[6] timelines 640x480, 201 vertices, {FRAMES} frames of "
@@ -1650,6 +1922,27 @@ def main() -> int:
               f"(bound {frame['k5_bound_us']:.2f}), K6 {frame['k6_us']:.2f} "
               f"us (bound {frame['k6_bound_us']:.2f}) on the device")
         prep[name] = (levels, frame)
+    blur = blur_upsample_frames(dev)
+    for name, res in blur.items():
+        for key, kernel in (("k2", "K2"), ("k4", "K4")):
+            levels, frame = res[key]
+            for r in levels:
+                where = (f"L{r['level']} {r['hw'][0]}x{r['hw'][1]} (padded "
+                         f"{r['hpwp'][0]}x{r['hpwp'][1]}, half {r['half']}, "
+                         f"x{r['iterations']})" if key == "k2" else
+                         f"{r['src'][0]}x{r['src'][1]} -> {r['dst'][0]}x"
+                         f"{r['dst'][1]} (padded {r['dst_pad'][0]}x"
+                         f"{r['dst_pad'][1]})")
+                print(f"[5] {kernel} {name} {where}: {r['us']:.2f} us (min "
+                      f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
+                      f"{r['bound_us']:.2f} ({r['bound_by']}), issue floor "
+                      f"{r['floor_us']:.2f}")
+            print(f"[5] {kernel} per {name} frame: {frame['us']:.2f} us on "
+                  f"the device (bound {frame['bound_us']:.2f}, issue floor "
+                  f"{frame['floor_us']:.2f})")
+    k7_gs = k7_against_grid_sample(dev)
+    print(f"[5] K7 and grid_sample at 640x480, budget 16, alternated "
+          f"(median us of 50 launches per turn): {k7_gs}")
     bench = bench_rows(dev)
     for b in bench:
         ms = "  ".join(f"{v} {t * 1e3:.2f} us" for v, t in b["ms"].items())
@@ -1673,6 +1966,14 @@ def main() -> int:
                                      r[f"{key}_bound_us"]] for r in v[0]]
                                 for k, v in prep.items()}
     rows[4]["k5_k6_share_of_1080p_frame"] = hd["prep_share"]
+    for i, key in ((1, "k2"), (3, "k4")):
+        rows[i]["us_per_frame"] = {k: v[key][1]["us"]
+                                   for k, v in blur.items()}
+        rows[i]["levels_us"] = {k: [[r["us"], r["bound_us"]]
+                                    for r in v[key][0]]
+                                for k, v in blur.items()}
+        rows[i]["us_per_1080p_stream_frame"] = hd[f"{key}_us_per_frame"]
+    rows[6]["alternated_us"] = k7_gs
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1682,4 +1983,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare-parent":
+        compare_parent(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ripcurrents_tpu_torch import kernels
 from ripcurrents_tpu_torch.config import FarnebackParams
 from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.fused_update import (HALO_X, HALO_Y,
@@ -161,7 +162,7 @@ def _prep_windows_on(args: tuple, device: torch.device) -> dict:
     """K5/K6 windows of one level geometry on `device`."""
     return prep_kernel.windows_on(
         prep_kernel.band_windows(*_level_prep_matrices(*args),
-                                 sms=prep_kernel.card_sms(device)), device)
+                                 sms=kernels.card_sms(device)), device)
 
 
 def poly_exp_level(img: torch.Tensor, lh: int, lw: int, n: int,

@@ -344,11 +344,73 @@ def farneback_blur_solve_plain(m: torch.Tensor, hw: tuple[int, int],
     return out
 
 
+# K2's tile plan. A thread sums a strip of `strip` output rows at two
+# adjacent columns in the y pass and a run of BLUR_RUN output columns of
+# one row in the x pass; the kernel is built for strips of 1 and 2 rows. A
+# block has at most BLUR_MAX_THREADS threads, so with the kernel's launch
+# bounds ptxas holds each thread to 65536 / BLUR_MAX_THREADS registers and
+# any planned block fits an SM (``kernels.DEFINES``, with which the kernel
+# is built).
+BLUR_MAX_THREADS = kernels.DEFINES["farneback_blur_solve"]["BLUR_MAX_THREADS"]
+BLUR_RUN = kernels.DEFINES["farneback_blur_solve"]["BLUR_RUN"]
+# A level with fewer than BLUR_LATENCY_TAPS output taps (true outputs times
+# window taps) cannot fill the card: its time is one thread's chain, so it
+# takes BLUR_SMALL (rows, cols, strip), the most blocks and the shortest
+# chains; a larger level takes BLUR_LARGE, fewer loads a product. Chosen
+# on an H100 from every tile of 8-32 rows by 32-128 columns in four
+# strip/run shapes at the 12 levels of the legacy, windowed and
+# subtract_average 640x480 and windowed 1080p pyramids: within 11% of the
+# fastest tile at each level and 2% over all of them.
+BLUR_LATENCY_TAPS = 1 << 19
+BLUR_SMALL = (8, 32, 1)
+BLUR_LARGE = (8, 64, 2)
+
+
+def blur_tile(rows: int, cols: int, half: int, strip: int) -> dict:
+    """The geometry of one K2 tile of rows x cols outputs at half-width
+    half with y strips of `strip` rows by 2 columns and x runs of BLUR_RUN
+    columns: the mid values, mid_cols columns from image column x0 +
+    mid_x0 (the x halo rounded up to even on each side, so each strip's
+    two columns are one aligned 4-byte word of M) by rows, f32 at row
+    pitch `pitch` (covering them and the x pass's 16-byte reads over each
+    run's window, rounded up to 4 mod 8 floats); y_tasks strips, x_tasks
+    runs, threads (one task of each a thread) and shared bytes."""
+    half_even = half + half % 2
+    pitch = cols - BLUR_RUN + 4 * -(-(half_even - half + BLUR_RUN + 2 * half)
+                                     // 4)
+    pitch = max(pitch, cols + 2 * half_even)
+    pitch += (4 - pitch) % 8
+    y_tasks = (cols // 2 + half_even) * (rows // strip)
+    x_tasks = rows * (cols // BLUR_RUN)
+    return {"rows": rows, "cols": cols, "half": half, "strip": strip,
+            "mid_cols": cols + 2 * half_even, "mid_x0": -half_even,
+            "pitch": pitch, "y_tasks": y_tasks, "x_tasks": x_tasks,
+            "threads": -(-max(y_tasks, x_tasks) // 32) * 32,
+            "shared": 5 * rows * pitch * 4}
+
+
+@functools.lru_cache(maxsize=256)
+def blur_plan(hp: int, wp: int, half: int, hw: tuple[int, int]) -> dict:
+    """K2's tiles at one level, padded (hp, wp), true size hw, half-width
+    half: BLUR_SMALL below BLUR_LATENCY_TAPS output taps, else BLUR_LARGE,
+    as ``blur_tile`` plus grid (tiles across, tiles down). Tiles wholly in
+    the pads only write zeros."""
+    taps = hw[0] * hw[1] * (2 * half + 1)
+    rows, cols, strip = BLUR_SMALL if taps < BLUR_LATENCY_TAPS \
+        else BLUR_LARGE
+    t = blur_tile(rows, cols, half, strip)
+    if t["threads"] > BLUR_MAX_THREADS or t["shared"] > kernels.MAX_SHARED:
+        raise ValueError(f"K2: a {rows}x{cols} tile at half-width {half} "
+                         f"does not fit a block")
+    return dict(t, grid=(-(-wp // cols), -(-hp // rows)))
+
+
 def farneback_blur_solve(m: torch.Tensor, hw: tuple[int, int], winsize: int,
                          gaussian: bool, zero_pads: bool) -> torch.Tensor:
     """K2: window blur (box or Gaussian, cv2 replicate border about the
     true size hw) of M and the 2x2 solve -> flow (2, Hp, Wp) f32, its
-    alignment pads zeroed when zero_pads."""
+    alignment pads zeroed when zero_pads. On CUDA tensors one launch over
+    the tiles of ``blur_plan``."""
     h, w = hw
     dev = m.device
     _, hp, wp = m.shape
@@ -360,10 +422,14 @@ def farneback_blur_solve(m: torch.Tensor, hw: tuple[int, int], winsize: int,
     wy, wx = _blur_weights_on(hp, h, winsize, gaussian, dev)
     if not kernels.launches_on(dev):
         return farneback_blur_solve_plain(m, hw, wy, wx, zero_pads)
+    plan = blur_plan(hp, wp, half, (h, w))
+    # the taps go to the kernel by value, from the host copy
+    taps = _blur_weights(hp, h, _blur_taps(winsize, gaussian))[1]
     flow = torch.empty((2, hp, wp), dtype=torch.float32, device=dev)
     err = kernels.entry("farneback_blur_solve")(
-        m.data_ptr(), wy.data_ptr(), wx.data_ptr(), flow.data_ptr(), h, w,
-        hp, wp, half, int(zero_pads),
+        m.data_ptr(), wy.data_ptr(), taps.ctypes.data, flow.data_ptr(), h, w,
+        hp, wp, half, int(zero_pads), plan["rows"], plan["cols"],
+        plan["strip"], plan["pitch"], plan["threads"], plan["shared"],
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "farneback_blur_solve")
     farneback_blur_solve.launches += 1

@@ -48,7 +48,6 @@ from ripcurrents_tpu_torch import kernels
 # columns (fewer warps, fewer loads per product); plans made off the card
 # count the H100's SMs.
 WARPS_PER_SM = 16
-H100_SMS = 132
 # K5: level rows per block (one warp each); K6: rows per tile (one lane
 # each), column groups per block (one warp each); K6's pad-zeroing blocks
 # take ZERO_ROWS canvas rows each. The kernels are built with these
@@ -57,13 +56,6 @@ Y_WARPS = kernels.DEFINES["prep_y"]["PREP_Y_WARPS"]
 X_ROWS = kernels.DEFINES["prep_x3"]["PREP_X_ROWS"]
 X_WARPS = kernels.DEFINES["prep_x3"]["PREP_X_WARPS"]
 ZERO_ROWS = kernels.DEFINES["prep_x3"]["PREP_X_ZERO_ROWS"]
-
-
-def card_sms(device: torch.device) -> int:
-    """The SMs of the card `device` lies on; H100_SMS for the CPU."""
-    if device.type != "cuda":
-        return H100_SMS
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bf16_values(m: np.ndarray) -> np.ndarray:
@@ -94,7 +86,7 @@ def _windows(mats: list[np.ndarray]) -> tuple[np.ndarray, ...]:
 
 
 def band_windows(by3: np.ndarray, bx_g: np.ndarray, bx_xg: np.ndarray,
-                 bx_xxg: np.ndarray, sms: int = H100_SMS) -> dict:
+                 bx_xxg: np.ndarray, sms: int = kernels.H100_SMS) -> dict:
     """The windows of one level geometry, from the composed matrices of
     ``_level_prep_matrices`` (by3 (h, 3*ph), bx_* (w, pw)), each rounded
     to bf16 first: the y pass per output row of t, the x3 pass per output
@@ -153,7 +145,7 @@ def _widen(lo, ln, wts, starts, count):
     return out
 
 
-def y_plan(win: dict, sms: int = H100_SMS) -> dict:
+def y_plan(win: dict, sms: int = kernels.H100_SMS) -> dict:
     """K5's tiles. A block takes ``Y_WARPS`` level rows (one warp each, all
     three sections) of the nonzero rows [y_rows) by 32 * y_cols columns
     of the frame, and stages the source rows its warps read; blocks past
@@ -194,7 +186,7 @@ def y_plan(win: dict, sms: int = H100_SMS) -> dict:
             "y_shared": shared}
 
 
-def x_plan(win: dict, sms: int = H100_SMS) -> dict:
+def x_plan(win: dict, sms: int = kernels.H100_SMS) -> dict:
     """K6's tiles. Columns [x_cols_nz) with a window are cut into groups
     of x_cols (1 or 2) adjacent columns, one warp each, lanes over
     ``X_ROWS`` output rows; a block takes ``X_WARPS`` groups of a row

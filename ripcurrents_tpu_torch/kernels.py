@@ -35,9 +35,14 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Shared memory a Hopper block can take (with cudaFuncSetAttribute).
 MAX_SHARED = 227 * 1024
-# Per-source -D defines: K5's and K6's tile sizes, which their host plans
-# (flow/prep_kernel.py) read from here.
+# SMs of an H100 SXM (the host plans made off the card count these).
+H100_SMS = 132
+# Per-source -D defines: K2's block limit and x run, K4's block shape, and
+# K5's and K6's tile sizes, which their host plans (flow/fused_update.py,
+# ops/image.py, flow/prep_kernel.py) read from here.
 DEFINES = {
+    "farneback_blur_solve": {"BLUR_MAX_THREADS": 512, "BLUR_RUN": 4},
+    "resize_cf_padded": {"RESIZE_WARPS": 4, "RESIZE_MIN_BLOCKS": 4},
     "prep_y": {"PREP_Y_WARPS": 8},
     "prep_x3": {"PREP_X_ROWS": 32, "PREP_X_WARPS": 8, "PREP_X_ZERO_ROWS": 4},
 }
@@ -55,12 +60,14 @@ _ENTRIES = {
                                          [_I]),
     "farneback_blur_solve": ("farneback_blur_solve",
                              "farneback_blur_solve_launch",
-                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P]),
     "lk_track": ("lk_track", "lk_track_launch",
                  [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                   _F, _F, _P]),
     "resize_cf_padded": ("resize_cf_padded", "resize_cf_padded_launch",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P]),
     "prep_y": ("prep_y", "prep_y_launch",
                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                 _P]),
@@ -151,6 +158,13 @@ def entry(name: str):
     """The loaded C launch function `name` of ``_ENTRIES`` (builds every
     kernel on first use)."""
     return _libs()[name][1]
+
+
+def card_sms(device: torch.device) -> int:
+    """The SMs of the card `device` lies on; H100_SMS for the CPU."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launches_on(device: torch.device) -> bool:

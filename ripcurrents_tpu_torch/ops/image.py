@@ -199,6 +199,32 @@ def resize_cf_padded_dense(img: torch.Tensor, key) -> torch.Tensor:
     return torch.matmul(torch.matmul(myt, img), mx)
 
 
+# K4's block: RESIZE_WARPS warps of 32 threads, each thread 4 output
+# columns of `rows` output rows; the launch bounds promise
+# RESIZE_MIN_BLOCKS blocks an SM (``kernels.DEFINES``, with which the
+# kernel is built). A thread takes at most RESIZE_MAX_ROWS rows: with more,
+# too few threads keep loads in flight (on an H100, 4 rows a thread beat 8
+# at 1080p).
+RESIZE_WARPS = kernels.DEFINES["resize_cf_padded"]["RESIZE_WARPS"]
+RESIZE_MIN_BLOCKS = kernels.DEFINES["resize_cf_padded"]["RESIZE_MIN_BLOCKS"]
+RESIZE_MAX_ROWS = 4
+
+
+def resize_plan(dph: int, dpw: int, sms: int = kernels.H100_SMS) -> dict:
+    """K4's grid at an output of (dph, dpw), dpw % 4 == 0: a warp takes
+    128 columns of `rows` output rows, a block RESIZE_WARPS such row
+    groups; rows is the smallest power of two (at most RESIZE_MAX_ROWS)
+    at which the grid fits sms * RESIZE_MIN_BLOCKS blocks, so that the
+    launch is one wave of RESIZE_MIN_BLOCKS blocks an SM."""
+    cols = -(-dpw // 128)
+    rows = 1
+    while cols * -(-dph // (RESIZE_WARPS * rows)) > sms * RESIZE_MIN_BLOCKS \
+            and rows < RESIZE_MAX_ROWS:
+        rows *= 2
+    return {"rows": rows,
+            "grid": (cols, -(-dph // (RESIZE_WARPS * rows)))}
+
+
 def resize_bilinear_cf_padded(img: torch.Tensor, src_true: tuple[int, int],
                               dst_true: tuple[int, int],
                               dst_pad: tuple[int, int],
@@ -209,7 +235,8 @@ def resize_bilinear_cf_padded(img: torch.Tensor, src_true: tuple[int, int],
     fold (the 1/pyr_scale flow rescale). The embedding, the zeros and the
     scale live in the taps: out[c] = MyT @ img[c] @ Mx. Source pad values
     meet zero weights, so they must be finite. On CUDA tensors one launch
-    of the kernel; on CPU tensors the plain version."""
+    of the kernel over ``resize_plan``'s grid (DPw % 4 == 0); on CPU
+    tensors the plain version."""
     if img.dtype != torch.float32 or img.dim() != 3 or \
             not img.is_contiguous():
         raise ValueError(f"img: expected contiguous float32 (C, SPh, SPw), "
@@ -219,11 +246,16 @@ def resize_bilinear_cf_padded(img: torch.Tensor, src_true: tuple[int, int],
     taps = _padded_taps_on(key, img.device)
     if not kernels.launches_on(img.device):
         return resize_cf_padded_plain(img, *taps)
+    if dst_pad[1] % 4:
+        raise ValueError(f"resize_bilinear_cf_padded: the padded width "
+                         f"{dst_pad[1]} is not a multiple of 4 (16-byte "
+                         f"stores)")
     out = torch.empty((c,) + tuple(dst_pad), dtype=torch.float32,
                       device=img.device)
+    plan = resize_plan(*dst_pad, kernels.card_sms(img.device))
     err = kernels.entry("resize_cf_padded")(
         img.data_ptr(), *(t.data_ptr() for t in taps), out.data_ptr(), c,
-        sph, spw, dst_pad[0], dst_pad[1],
+        sph, spw, dst_pad[0], dst_pad[1], plan["rows"],
         torch.cuda.current_stream(img.device).cuda_stream)
     kernels.check(err, "resize_cf_padded")
     resize_bilinear_cf_padded.launches += 1

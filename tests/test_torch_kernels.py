@@ -1,9 +1,9 @@
 """The Hopper kernels K1-K4 and the level loop against their plain
-PyTorch versions, on the card (K1 at every pyramid level, K3 with points
-that cross the image edge and move past its J patch). These are the
-checks chip_smoke.py runs (its check functions, its tolerances). Without
-a card every test skips: a CUDA kernel has no CPU interpret mode, and
-the CPU tests hold the plain versions to the JAX kernels instead."""
+PyTorch versions, on the card (K1, K2 and K4 at every pyramid level, K3
+with points that cross the image edge and move past its J patch). These
+are the checks chip_smoke.py runs (its check functions, its tolerances).
+Without a card every test skips: a CUDA kernel has no CPU interpret mode,
+and the CPU tests hold the plain versions to the JAX kernels instead."""
 
 import importlib.util
 import pathlib
@@ -92,6 +92,27 @@ def test_resize_kernel_matches_plain_and_dense(card, hw, preset):
     cs = _chip_smoke()
     devs = cs.check_resize(*hw, getattr(FarnebackParams, preset)(), card)
     assert devs["k4_vs_plain"] <= cs.K4_TOL
+
+
+@pytest.mark.parametrize("hw,preset", [
+    ((480, 640), "legacy"),            # box 3
+    ((480, 640), "windowed"),          # Gaussian 10, the dense modes
+    ((480, 640), "subtract_average"),  # Gaussian 20
+    ((1080, 1920), "windowed"),        # the 1080p stream
+    ((480, 640), "android"),           # 4 levels, box 5
+    ((75, 107), "legacy"),             # ragged
+    ((40, 300), "legacy"),
+    ((40, 300), "subtract_average"),   # levels shorter than the window
+])
+def test_blur_and_upsample_kernels_match_plain_at_every_level(card, hw,
+                                                              preset):
+    """K2 at every level (pads zeroed; at level 0 also not) and K4 at
+    every level change, bit for bit with their plain versions; the checks
+    raise on a nonzero pad."""
+    cs = _chip_smoke()
+    p = getattr(FarnebackParams, preset)()
+    assert cs.check_blur(*hw, p, card)["k2_vs_plain"] == 0.0
+    assert cs.check_resize(*hw, p, card)["k4_vs_plain"] == 0.0
 
 
 @pytest.mark.parametrize("n,streams,preset", [(201, 1, "particles"),
