@@ -10,8 +10,9 @@ CUDA toolkit:
 Every phase passes or raises (the script catches nothing):
 
 1. the card's name and power limit; build the eight kernels of ``csrc/``
-   with nvcc for sm_90a and print the build time, the ptxas report and
-   how many K1 clusters of each size the card holds at once;
+   with nvcc for sm_90a and print the build time, the ptxas report, how
+   many K1 and K8 clusters of each size the card holds at once and K8's
+   plan (S, CTAs, threads) at the tiled engine's levels and at 1080p;
 2. K1 (farneback_update), K2 (farneback_blur_solve) and the level loop
    against their plain versions on the card, at the main path's shapes:
    640x480 level 0 of the legacy preset (table (5, 544, 896) bf16, bres 4,
@@ -34,11 +35,13 @@ Every phase passes or raises (the script catches nothing):
    the 40x300 legacy tables and of android's 4-level 640x480 tables
    (``PREP_CHECKS``); K7 (warp5_shift) against
    its plain version at 640x480 with flows inside and beyond +-16 px; K8
-   (warp_tiles) against its plain version in its halo layout at 1080p
-   (bres 2 with 384-wide and bres 1 with 640-wide subcolumns, the
+   (warp_tiles) against its plain version bit for bit in its halo layout
+   at 1080p (bres 2 with 384-wide and bres 1 with 640-wide subcolumns, the
    bench_warp configurations, bases up to the halo clamp; and its no-base
-   instance) and in its frame layout at 640x480 (tile 64 x 256, bres 2 and
-   4, flows up to +-24 px plus noise);
+   instance) and in its frame layout at every level of the tiled engine's
+   640x480 pyramid, for C = 1 at 1080p (bres 2), C = 3 at 640x480 (bres
+   6) and at a ragged 75x107 (``TILES_FRAME_CHECKS``), clamped residuals
+   included; one device kernel per K8 call in each layout;
 3. the legacy rip detector (``make_legacy``, 250 seeds) on 40 synthetic
    1280x720 moving-texture frames at 640x480: finite outputs of the right
    shapes, a live duty mask, K1 and K2 each launched 6 times, K4 twice and
@@ -49,7 +52,9 @@ Every phase passes or raises (the script catches nothing):
    and K4's device time per frame;
 5. each kernel's time per launch at the 640x480 shapes beside its plain
    version, its bound and a library call, as one JSON line (K8 in its
-   frame layout, the tiled engine's level 0); K3 as the median and spread
+   frame layout, the tiled engine's level 0); K8 at every level of the
+   tiled engine's 640x480 pyramid and per tiled frame, and in the halo
+   layout with its no-base floor (``k8_levels``); K3 as the median and spread
    of 30 launches at 201 vertices and at 1280 points, with its longest
    per-point chain of iterations and a latency row beside its bound; K5
    and K6 at every level of the legacy 640x480 and windowed 1080p
@@ -69,7 +74,8 @@ Every phase passes or raises (the script catches nothing):
    ring, and the device memory its state holds and peaks at), then
    ``subtructAverageVector`` on the portable engine
    (``warp_impl="pallas"``: K7 9 times per frame) and on its tiled warp
-   (``warp_impl="tiled"``: K8 9 times per frame); then
+   (``warp_impl="tiled"``: K8 9 times per frame, 9 device kernels in a
+   traced frame); then
    ``subtructAverageVectorWithWindow`` on the fused engine and on the
    tiled warp at 192x256 on the card against the same steps on the CPU,
    and ``subtructAverageVector``'s flow on both (its pixels are read:
@@ -86,10 +92,10 @@ that. Without a card the script exits non-zero before printing a result.
 
 ``python3 chip_smoke.py --compare-parent DIR``, where DIR holds only an
 older tree's ``ripcurrents_tpu_torch/`` (``git archive <commit>
-ripcurrents_tpu_torch | tar -x -C DIR``), instead times K2 and K4
-(``blur_upsample_frames``) in that tree and in this one, alternating
-parent / change / change / parent twice, each run a fresh process that
-builds its own kernels.
+ripcurrents_tpu_torch | tar -x -C DIR``), instead times K8
+(``k8_levels``) in that tree and in this one, alternating parent / change
+/ change / parent twice, each run a fresh process that builds its own
+kernels.
 """
 
 from __future__ import annotations
@@ -249,6 +255,20 @@ L2_ROUND_TRIP_US = 0.13
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+# The tiled engine's preset (subtructAverageVector with warp_impl="tiled")
+# and K8's frame-layout checks beyond its pyramid: C = 1 at 1080p
+# (dense_lk's table, bres 2), C = 3 at 640x480 (feature_stab's colour
+# frame, bres 6) and a ragged 75x107 table, whose flow rows do not start
+# 16-byte aligned (the sum's partial units): (h, w, C, tile, bres).
+TILED_PRESET = dataclasses.replace(FarnebackParams.subtract_average(),
+                                   warp_impl="tiled")
+TILES_FRAME_CHECKS = {
+    "1080p": (1080, 1920, 1, (64, 256), 2),
+    "640x480": (480, 640, 3, (64, 256), 6),
+    "75x107": (75, 107, 5, (64, 256), 2),
+}
+
 
 def level_inputs(h, w, p: FarnebackParams, device, k=0, seed=0,
                  flow_px=4.0):
@@ -689,12 +709,49 @@ def halo_tiles_inputs(device, bres, sw, seed=0):
     return g
 
 
+def tiled_levels(h, w, p: FarnebackParams = TILED_PRESET):
+    """(level, (lh, lw), tile, bres, iterations) at every level of the
+    tiled engine's pyramid for preset p at (h, w), coarsest first, as
+    ``farneback._portable_from_expansions`` walks it."""
+    wr, it_sched = fb._residual_schedule(h, w, p)
+    out = []
+    for k in range(p.levels, -1, -1):
+        _, lh, lw, _, _ = fb._level_geometry(h, w, p, k)
+        out.append((k, (lh, lw), fb._adaptive_tile(lh, lw, p.warp_tile),
+                    fb._per_level(wr, k), fb._level_iters(p, it_sched, k)))
+    return out
+
+
+def frame_tiles_inputs(h, w, c, bres, device, seed=0, flow_px=8.0):
+    """K8's frame-layout inputs: for c == 5 the tiled engine's level-0
+    expansion of a moving-texture frame at (h, w), for c == 3 or 1 that
+    frame in colour or gray as float32 (feature_stab's and dense_lk's
+    tables); a smooth flow of up to +-flow_px (a random value every ~128
+    px, interpolated) plus N(0, (bres / 2)^2) noise and a mean shift of
+    (flow_px / 4, -flow_px / 6), so that the tile bases spread and some
+    residuals pass +-bres."""
+    f = moving_frames(1, h, w, device, seed=seed, color=c == 3)[0]
+    if c == 5:
+        table = fb.farneback_precompute(f, TILED_PRESET)[-1]
+    else:
+        table = f.to(torch.float32).reshape(h, w, c).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    coarse = (torch.rand((1, 2, h // 128 + 2, w // 128 + 2), generator=g)
+              * 2 - 1) * flow_px
+    flow = F.interpolate(coarse, size=(h, w), mode="bilinear",
+                         align_corners=False)[0].permute(1, 2, 0)
+    flow = (flow + torch.randn((h, w, 2), generator=g) * (0.5 * bres) +
+            torch.tensor([flow_px / 4, -flow_px / 6]))
+    return table, flow.contiguous().to(device)
+
+
 def check_tiles(device):
     """K8 against its plain version: the halo layout at 1080p at both
     bench_warp configurations (with the no-base instance), the frame layout
-    at 640x480 with tile (64, 256), bres 2 and 4. Returns the deviations
-    and what the inputs exercised; raises past TILES_TOL or when no base
-    or clamp was exercised."""
+    at every level of the tiled engine's 640x480 pyramid (C = 5) and at
+    ``TILES_FRAME_CHECKS`` (C = 1 at 1080p, C = 3 at 640x480, a ragged
+    75x107). Returns the deviations and what the inputs exercised; raises
+    past TILES_TOL or when no base or clamp was exercised."""
     out = {}
     for bres, sw in ((2, None), (1, 640)):
         g = halo_tiles_inputs(device, bres, sw)
@@ -717,31 +774,74 @@ def check_tiles(device):
         if d > TILES_TOL or dz > TILES_TOL or res["y_clamped_blocks"] == 0:
             raise AssertionError(f"K8 halo layout, bres {bres}: {res}")
         out[f"halo_1080p_bres{bres}_sw{g['sw']}"] = res
-    h, w, th, tw = 480, 640, 64, 256
-    for bres in (2, 4):
-        r1, flow = warp_inputs(h, w, device, 24.0, seed=bres)
-        gen = torch.Generator().manual_seed(bres)
-        flow = (flow + (torch.randn(flow.shape, generator=gen) * 1.5).to(
-            device)).contiguous()
-        counts = warp_kernel.frame_counts(h, w, th, tw, device)
-        got = warp_kernel.warp_tiles(r1, flow, counts, th, tw, bres)
+    frames = {f"640x480 L{k} {lh}x{lw}": (lh, lw, 5, tile, bres)
+              for k, (lh, lw), tile, bres, _ in tiled_levels(480, 640)}
+    for i, (name, (h, w, c, (th, tw), bres)) in enumerate(
+            {**frames, **TILES_FRAME_CHECKS}.items()):
+        table, flow = frame_tiles_inputs(h, w, c, bres, device, seed=i)
+        got = warp_kernel.warp_tiles(table, flow, None, th, tw, bres)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        plain = warp_kernel.warp_tiles_plain(r1, flow, counts, th, tw, bres)
+        plain = warp_kernel.warp_tiles_plain(table, flow, None, th, tw, bres)
+        counts = warp_kernel.frame_counts(h, w, th, tw, device)
         bases = warp_kernel.tile_bases_plain(flow.permute(2, 0, 1), counts,
                                              th, tw, warp_kernel.MAX_BASE,
                                              warp_kernel.MAX_BASE)
         full = bases.repeat_interleave(th, 1).repeat_interleave(tw, 2)
         resid = flow.permute(2, 0, 1) - full[:, :h, :w]
-        res = {"max": (got - plain).abs().max().item(),
+        res = {"channels": c, "tile": (th, tw), "bres": bres,
+               "max": (got - plain).abs().max().item(),
                "base_abs_max": bases.abs().max().item(),
                "residual_clamped_share":
                    (resid.abs() > bres).any(0).float().mean().item()}
         if res["max"] > TILES_TOL or res["base_abs_max"] < 2 or \
-                not 0.0 < res["residual_clamped_share"] < 1.0:
-            raise AssertionError(f"K8 frame layout, bres {bres}: {res}")
-        out[f"frame_640x480_bres{bres}"] = res
+                not 0.0 < res["residual_clamped_share"] < 1.0 or \
+                got.shape != (h, w, c):
+            raise AssertionError(f"K8 frame layout, {name}: {res}")
+        out[f"frame {name} C{c} bres {bres}"] = res
     return out
+
+
+def k8_kernels_per_call(device):
+    """Device kernels one K8 call launches in each layout (torch.profiler
+    records of one call after a warm one): {layout: [kernel names]}."""
+    g = halo_tiles_inputs(device, 2, None)
+    table, flow = frame_tiles_inputs(480, 640, 5, 2, device)
+    calls = {"halo": lambda: warp_kernel.warp_tiles(
+                 g["table"], g["flow"], g["counts"], g["th"], g["sw"], 2),
+             "frame": lambda: warp_kernel.warp_tiles(table, flow, None, 64,
+                                                     256, 2)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out[name] = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out
+
+
+def k8_kernels_per_frame(device, h=480, w=640):
+    """K8's device kernels in one frame of the tiled engine at (h, w): the
+    torch.profiler records (after a warm frame) whose name holds
+    "warp_tiles" or "tile_sums", and the wrapper's launches."""
+    f = moving_frames(2, h, w, device, color=False)
+    e0, e1 = (fb.farneback_precompute(f[i], TILED_PRESET) for i in (0, 1))
+    step = lambda: fb.farneback_from_expansions(  # noqa: E731
+        e0, e1, (h, w), TILED_PRESET)
+    step()
+    torch.cuda.synchronize()
+    before = warp_kernel.warp_tiles.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and
+             ("warp_tiles" in e.name or "tile_sums" in e.name)]
+    return {"device_kernels": len(names),
+            "calls": warp_kernel.warp_tiles.launches - before}
 
 
 # ---------------------------------------------------------------------------
@@ -1170,18 +1270,25 @@ def wall_ms(fn, reps):
 def device_ms(fn, reps):
     """Device time per call: the summed duration of every kernel the call
     launches, from a torch.profiler trace of `reps` warm calls (warm L2:
-    on the main path each kernel reads what the previous one wrote)."""
+    on the main path each kernel reads what the previous one wrote). A
+    session that records no device time is repeated, at most twice; when
+    all three record none, the call is timed by CUDA events around the
+    `reps` calls (the host's issue time included where it is longer) and
+    the script says so."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    print("    torch.profiler recorded no device time in 3 sessions; timed "
+          "by CUDA events around the calls instead", flush=True)
+    return wall_ms(fn, reps)
 
 
 def event_times(fn, reps, hold_cycles=20_000_000):
@@ -1205,13 +1312,12 @@ def event_times(fn, reps, hold_cycles=20_000_000):
     return [s.elapsed_time(e) for s, e in marks]
 
 
-def device_times(fn, reps, name, fallback=True):
+def device_times(fn, reps, name):
     """Device time in ms of each of `reps` warm calls of fn, which launches
-    one kernel whose name holds `name` (torch.profiler events). A session
+    one kernel, whose name holds `name` (torch.profiler events). A session
     that records fewer than half of the launches (the profiler dropped some
-    in long runs) is repeated, at most twice; when all three lose them and
-    `fallback` is set (fn launches that one kernel only), the calls are
-    timed by ``event_times`` instead and the script says so."""
+    in long runs) is repeated, at most twice; when all three lose them, the
+    calls are timed by ``event_times`` instead and the script says so."""
     fn()
     torch.cuda.synchronize()
     seen = set()
@@ -1226,9 +1332,6 @@ def device_times(fn, reps, name, fallback=True):
         if len(ts) >= reps // 2:
             return ts
         seen |= {e.name[:40] for e in cuda}
-    if not fallback:
-        raise AssertionError(f"profiled {len(ts)} launches of {name}, "
-                             f"expected {reps}")
     print(f"    torch.profiler recorded {len(ts)} of {reps} launches of "
           f"{name} in each of 3 sessions (it recorded {sorted(seen)}); "
           f"timed by CUDA events around each call instead", flush=True)
@@ -1246,16 +1349,13 @@ def lk_timing(device, pts, p: LKParams = LKParams.particles(),
     return sorted(device_times(k3, reps, "lk_track_kernel")), iters
 
 
-def median_ms(fn, reps, *names):
-    """A kernel's device time per call: for each kernel name fn launches
-    once per call, the median of its profiled launches, summed over the
-    names. Medians of the recorded launches do not depend on how many
-    records the profiler dropped (a sum over the session would)."""
-    total = 0.0
-    for name in names:
-        t = sorted(device_times(fn, reps, name, fallback=len(names) == 1))
-        total += t[len(t) // 2]
-    return total
+def median_ms(fn, reps, name):
+    """A kernel's device time per call: the median of the profiled
+    launches of kernel `name`, which fn launches once per call. Medians of
+    the recorded launches do not depend on how many records the profiler
+    dropped (a sum over the session would)."""
+    t = sorted(device_times(fn, reps, name))
+    return t[len(t) // 2]
 
 
 def prep_bytes_ops(args, win, channels_first=True):
@@ -1417,12 +1517,79 @@ def blur_upsample_frames(device, reps=50):
             for name, (hw, preset) in BLUR_PYRAMIDS.items()}
 
 
+def call_ms(fn, reps):
+    """Device ms per call of fn, which launches each of its kernels once
+    per call: each kernel name's median of its profiled launches, summed
+    over the names; and the names. A session that records fewer than half
+    of some kernel's launches is repeated, at most twice; when all three
+    lose them, the median of ``event_times`` (CUDA events around each
+    call, a few us high) and the script says so."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by.setdefault(e.name, []).append(
+                    e.time_range.elapsed_us() / 1e3)
+        if by and min(len(t) for t in by.values()) >= reps // 2:
+            return (sum(sorted(t)[len(t) // 2] for t in by.values()),
+                    sorted(by))
+    print(f"    torch.profiler recorded "
+          f"{({k[:40]: len(t) for k, t in by.items()})} of {reps} launches "
+          f"in each of 3 sessions; timed by CUDA events around each call "
+          f"instead", flush=True)
+    t = sorted(event_times(fn, reps))
+    return t[len(t) // 2], sorted(by)
+
+
+def k8_bytes(hw, channels, table_bytes=4):
+    """K8's bytes at one call: the table, the flow (f32, 2 channels) and
+    the f32 output once each."""
+    return hw[0] * hw[1] * (channels * table_bytes + 2 * 4 + channels * 4)
+
+
+def k8_levels(device, reps=50):
+    """K8 at every level of the tiled engine's 640x480 pyramid (frame
+    layout, C = 5, the engine's tiles and residuals; device us per call:
+    ``call_ms`` over `reps` launches) beside its bound, and per tiled
+    frame (each level x its iterations); and in the halo layout at both
+    bench_warp configurations with the no-base floor "Z". Uses only what
+    the parent tree's package also has, so that ``compare_parent`` can time
+    both trees with it."""
+    rows = []
+    for k, hw, (th, tw), bres, iters in tiled_levels(480, 640):
+        table, flow = frame_tiles_inputs(*hw, 5, bres, device, seed=k)
+        counts = warp_kernel.frame_counts(*hw, th, tw, device)
+        ms, names = call_ms(lambda: warp_kernel.warp_tiles(
+            table, flow, counts, th, tw, bres), reps)
+        rows.append({"level": k, "hw": hw, "tile": (th, tw), "bres": bres,
+                     "iterations": iters, "us": ms * 1e3,
+                     "kernels": len(names),
+                     "bound_us": k8_bytes(hw, 5) / HBM_BYTES_PER_S * 1e6})
+    frame = {key: sum(r[key] * r["iterations"] for r in rows)
+             for key in ("us", "bound_us", "kernels")}
+    halo = {}
+    for bres, sw in ((2, None), (1, 640)):
+        g = bench_warp.inputs(device, sw)
+        halo[f"bres{bres}_sw{g['sw']}"] = {
+            v: call_ms(bench_warp.variant_fn(v, g, bres), reps)[0] * 1e3
+            for v in ("A", "Z")}
+        halo[f"bres{bres}_sw{g['sw']}"]["bound_us"] = k8_bytes(
+            (g["hp"], g["wp"]), 5, 2) / HBM_BYTES_PER_S * 1e6
+    return {"levels": rows, "frame": frame, "halo_1080p": halo}
+
+
 def compare_parent(parent: str, rounds=2):
-    """Time K2 and K4 (``blur_upsample_frames``) in the parent tree at
-    `parent` (a directory holding only its ``ripcurrents_tpu_torch/``) and in
-    this one, alternating parent / change / change / parent (`rounds`
-    such pairs of pairs), each run a fresh process that builds its own
-    kernels. Prints and returns the per-frame sums of each run."""
+    """Time K8 (``k8_levels``) in the parent tree at `parent` (a directory
+    holding only its ``ripcurrents_tpu_torch/``) and in this one,
+    alternating parent / change / change / parent (`rounds` such pairs of
+    pairs), each run a fresh process that builds its own kernels. Prints
+    and returns what each run measured."""
     import os
     import pathlib
     here = pathlib.Path(__file__).resolve().parent
@@ -1430,7 +1597,7 @@ def compare_parent(parent: str, rounds=2):
     # the tree's package comes first on the path, this chip_smoke.py after
     code = ("import json, sys, torch; sys.path.append(%r); "
             "import chip_smoke as cs; "
-            "print('RESULT ' + json.dumps(cs.blur_upsample_frames("
+            "print('RESULT ' + json.dumps(cs.k8_levels("
             "torch.device('cuda'))))")
     runs = []
     for _ in range(rounds):
@@ -1440,14 +1607,15 @@ def compare_parent(parent: str, rounds=2):
                                  cwd=trees[name], env=env, check=True,
                                  capture_output=True, text=True).stdout
             res = json.loads(out.split("RESULT ", 1)[1])
-            frames = {geo: {k: v[k][1]["us"] for k in ("k2", "k4")}
-                      for geo, v in res.items()}
-            levels = {geo: {k: [round(r["us"], 2) for r in v[k][0]]
-                            for k in ("k2", "k4")}
-                      for geo, v in res.items()}
-            print(f"[compare] {name}: us per frame {frames}; per level "
-                  f"{levels}", flush=True)
-            runs.append({"tree": name, "frames": frames, "levels": levels})
+            levels = [(r["level"], round(r["us"], 2), r["kernels"])
+                      for r in res["levels"]]
+            halo = {k: {v: round(t, 2) for v, t in d.items()}
+                    for k, d in res["halo_1080p"].items()}
+            print(f"[compare] {name}: K8 us per tiled frame "
+                  f"{res['frame']['us']:.2f} ({res['frame']['kernels']} "
+                  f"kernels); per level (level, us, kernels) {levels}; "
+                  f"1080p halo {halo}", flush=True)
+            runs.append({"tree": name, **res})
     return runs
 
 
@@ -1615,16 +1783,14 @@ def kernel_rows(device, launches, devs):
     # subtract_average: tile (64, 256), bres 2), flows within +-12 px.
     # Bytes: r1, the flow and the output once each; ops: the 4-tap sample
     # of 5 channels (6 products and 3 sums each), the weights and the
-    # residual, ~50 per pixel. Its time is both passes (base sums and
-    # sampling), each call's device time summed.
-    counts8 = warp_kernel.frame_counts(h, w, 64, 256, device)
+    # residual, ~50 per pixel. One launch a call.
     k8 = lambda: warp_kernel.warp_tiles(  # noqa: E731
-        r1, wflow, counts8, 64, 256, 2)
-    k8_ms = median_ms(k8, 100, "tile_sums_kernel", "warp_tiles_kernel")
+        r1, wflow, None, 64, 256, 2)
+    k8_ms = call_ms(k8, 100)[0]
     k8_wall = wall_ms(k8, 100)
     k8_plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
-        r1, wflow, counts8, 64, 256, 2), 5)
-    k8_bytes = h * w * (5 * 4 + 2 * 4 + 5 * 4)
+        r1, wflow, None, 64, 256, 2), 5)
+    k8_nbytes = k8_bytes((h, w), 5)
     k8_ops = h * w * 50
 
     def row(name, src, replaces, n, dev, ms, plain_ms, nbytes, ops, lib,
@@ -1674,25 +1840,23 @@ def kernel_rows(device, launches, devs):
         # library: the same grid_sample as K7's, on the same inputs
         row("warp_tiles", "ripcurrents_tpu_torch/csrc/warp_tiles.cu",
             "tools/bench_warp_variants.py:500", launches["K8"],
-            devs["k8_max"], k8_ms, k8_plain, k8_bytes, k8_ops, k7_lib,
+            devs["k8_max"], k8_ms, k8_plain, k8_nbytes, k8_ops, k7_lib,
             k8_wall),
     ]
 
 
 def bench_rows(device):
     """Phase 8: bench_warp at both tool configurations (CUDA events over
-    back-to-back launches), with K8's device time (torch.profiler, both
-    passes), its bound (bytes: the table's 5 bf16 channels, the flow and
-    the f32 output once each) and its plain version's device time at the
-    same inputs."""
+    back-to-back launches), with K8's device time (``call_ms``), its bound
+    (``k8_bytes``: the table's 5 bf16 channels, the flow and the f32
+    output once each) and its plain version's device time at the same
+    inputs."""
     rows = []
     for bres, sw in ((2, None), (1, 640)):
         g = bench_warp.inputs(device, sw)
         res = {v: bench_warp.run(v, bres, sw, g=g)
                for v in bench_warp.VARIANTS}
-        px = g["hp"] * g["wp"]
-        k8_dev = median_ms(bench_warp.variant_fn("A", g, bres), 20,
-                           "tile_sums_kernel", "warp_tiles_kernel")
+        k8_dev = call_ms(bench_warp.variant_fn("A", g, bres), 20)[0]
         plain = device_ms(lambda: warp_kernel.warp_tiles_plain(
             g["table"], g["flow"], g["counts"], g["th"], g["sw"], bres), 3)
         rows.append({"bres": bres, "th": g["th"], "sw": g["sw"],
@@ -1700,7 +1864,7 @@ def bench_rows(device):
                      "ms": {v: r["ms"] for v, r in res.items()},
                      "checksum": {v: r["checksum"] for v, r in res.items()},
                      "k8_device_ms": k8_dev,
-                     "k8_bound_ms": px * (5 * 2 + 2 * 4 + 5 * 4) /
+                     "k8_bound_ms": k8_bytes((g["hp"], g["wp"]), 5, 2) /
                      HBM_BYTES_PER_S * 1e3,
                      "k8_plain_ms": plain})
     return rows
@@ -1725,6 +1889,16 @@ def main() -> int:
     print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
     print(f"[1] K1 clusters the card holds at once, by cluster size: "
           f"{fu.card_clusters()}")
+    print(f"[1] K8 clusters the card holds at once, by CTA size and "
+          f"cluster size: {warp_kernel.tile_clusters()}; its plans (S, "
+          f"CTAs, threads): " + "; ".join(
+              f"{name} {hw[0]}x{hw[1]} tile {t}: " + str(tuple(
+                  warp_kernel._launch_plan(*hw, *t)[k]
+                  for k in ("S", "ctas", "threads")))
+              for name, hw, t in [(f"L{k}", hw, t) for k, hw, t, _, _ in
+                                  tiled_levels(480, 640)] +
+              [("halo", (1080, 1920), (120, 384)),
+               ("halo", (1080, 1920), (120, 640))]))
     for stem, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1775,6 +1949,11 @@ def main() -> int:
     devs["k8_max"] = max(r["max"] for r in k8_devs.values())
     for name, r in k8_devs.items():
         print(f"[2] K8 {name}: {r}")
+    per_call = k8_kernels_per_call(dev)
+    print(f"[2] K8 device kernels per call: {per_call}")
+    if any(len(v) != 1 for v in per_call.values()):
+        raise AssertionError(f"K8: expected one kernel per call, got "
+                             f"{per_call}")
     lk_devs = check_lk(dev, 201, timeline=True)
     devs["k3_px_max"] = lk_devs["px_max"]
     print(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
@@ -1879,6 +2058,13 @@ def main() -> int:
     want = dict(want, K7=0, K8=9 * n)
     if t_n != want:
         raise AssertionError(f"tiled warp: expected launches {want}")
+    k8_frame = k8_kernels_per_frame(dev)
+    print(f"[7] K8 in one traced 640x480 frame of the tiled engine: "
+          f"{k8_frame['device_kernels']} device kernels, "
+          f"{k8_frame['calls']} calls")
+    if k8_frame != {"device_kernels": 9, "calls": 9}:
+        raise AssertionError(f"tiled engine: expected 9 K8 kernels and "
+                             f"calls per frame, got {k8_frame}")
     print(f"[7] subtructAverageVectorWithWindow 192x256 on the card vs on "
           f"the CPU: {compare_dense_small(dev)}")
     print(f"[7] subtructAverageVectorWithWindow (warp_impl='tiled') "
@@ -1940,6 +2126,17 @@ def main() -> int:
             print(f"[5] {kernel} per {name} frame: {frame['us']:.2f} us on "
                   f"the device (bound {frame['bound_us']:.2f}, issue floor "
                   f"{frame['floor_us']:.2f})")
+    k8 = k8_levels(dev)
+    for r in k8["levels"]:
+        print(f"[5] K8 tiled 640x480 L{r['level']} {r['hw'][0]}x"
+              f"{r['hw'][1]} (tile {r['tile'][0]}x{r['tile'][1]}, bres "
+              f"{r['bres']}, x{r['iterations']}): {r['us']:.2f} us/call on "
+              f"the device ({r['kernels']} kernel), bound "
+              f"{r['bound_us']:.2f} us (bytes)")
+    print(f"[5] K8 per tiled-engine 640x480 frame: {k8['frame']['us']:.2f} "
+          f"us on the device, {k8['frame']['kernels']} kernels (bound "
+          f"{k8['frame']['bound_us']:.2f} us); 1080p halo (A, floor Z, "
+          f"bound, us): {k8['halo_1080p']}")
     k7_gs = k7_against_grid_sample(dev)
     print(f"[5] K7 and grid_sample at 640x480, budget 16, alternated "
           f"(median us of 50 launches per turn): {k7_gs}")
@@ -1953,6 +2150,9 @@ def main() -> int:
               f"{b['k8_plain_ms'] * 1e3:.2f} us; checksums {b['checksum']}")
     rows[-1]["ms_1080p_halo"] = {f"bres{b['bres']}_sw{b['sw']}":
                                  b["k8_device_ms"] for b in bench}
+    rows[-1]["us_per_tiled_frame"] = k8["frame"]["us"]
+    rows[-1]["levels_us"] = [[r["level"], r["us"], r["bound_us"]]
+                             for r in k8["levels"]]
     rows[0]["us_per_frame"] = {k: v["frame_us"] for k, v in
                                k1_levels.items()}
     rows[0]["levels_us"] = {k: [[r["level"], r["S"], r["ctas"],

@@ -42,8 +42,8 @@ from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.fused_update import (HALO_X, HALO_Y,
                                                      _row_tile, fused_level,
                                                      prepare_expansions)
-from ripcurrents_tpu_torch.flow.warp_kernel import (MAX_BASE, frame_counts,
-                                                    warp5_shift, warp_tiles)
+from ripcurrents_tpu_torch.flow.warp_kernel import (MAX_BASE, warp5_shift,
+                                                    warp_tiles)
 from ripcurrents_tpu_torch.ops.conv import gaussian_kernel
 from ripcurrents_tpu_torch.ops.image import (_linear_weights,
                                              resize_bilinear,
@@ -445,16 +445,17 @@ def _warp5_shift_mask(h: int, w: int, flow: torch.Tensor, budget: int):
 
 def _warp5_tiled(r1: torch.Tensor, flow: torch.Tensor, bres: int = 6,
                  max_base: int = MAX_BASE, th: int = 64, tw: int = 256):
-    """The tiled base + residual warp of r1 (H, W, 5) by flow (H, W, 2),
-    kernel K8 in its frame layout: per (th, tw) tile the rounded mean of
-    the tile's real-pixel flow, clamped to +-max_base, is the base; each
-    pixel samples r1 (zero outside the frame) bilinearly at base + its
-    residual clamped to +-bres. Returns (samples, inside): inside is the
-    frame test of floor(x + flow) alone, with no residual test."""
+    """The tiled base + residual warp of r1 (H, W, C) by flow (H, W, 2),
+    C in ``warp_kernel.CHANNELS``, kernel K8 in its frame layout: per
+    (th, tw) tile the rounded mean of the tile's real-pixel flow, clamped
+    to +-max_base, is the base; each pixel samples r1 (zero outside the
+    frame) bilinearly at base + its residual clamped to +-bres. Returns
+    (samples (H, W, C), inside): inside is the frame test of
+    floor(x + flow) alone, with no residual test. Other channel counts
+    raise ValueError."""
     h, w = r1.shape[0], r1.shape[1]
-    counts = frame_counts(h, w, th, tw, r1.device)
-    r1s = warp_tiles(r1.contiguous(), flow.contiguous(), counts, th, tw,
-                     bres, max_base)
+    r1s = warp_tiles(r1.contiguous(), flow.contiguous(), None, th, tw, bres,
+                     max_base)
     ys, xs = _grid(h, w, flow.device)
     x1 = torch.floor(xs + flow[..., 0])
     y1 = torch.floor(ys + flow[..., 1])

@@ -254,15 +254,8 @@ def card_clusters() -> dict:
     """{S: K1 clusters of S CTAs the card holds at once} for S = 1, 2, 4,
     ..., MAX_CLUSTER (cudaOccupancyMaxActiveClusters); raises when the
     query fails."""
-    query = kernels.entry("farneback_update_active_clusters")
-    out = {}
-    for k in range(MAX_CLUSTER.bit_length()):
-        got = query(1 << k)
-        if got < 0:
-            raise RuntimeError(f"farneback_update: cluster occupancy query "
-                               f"failed with CUDA error {-got}")
-        out[1 << k] = got
-    return out
+    return kernels.active_clusters("farneback_update_active_clusters",
+                                   MAX_CLUSTER)
 
 
 @functools.lru_cache(maxsize=64)

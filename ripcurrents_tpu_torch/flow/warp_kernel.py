@@ -32,23 +32,27 @@ engine's tiled warp, ``ripcurrents_tpu/flow/farneback.py: _warp5_tiled``.
 Per tile of (th, tw) pixels the integer base is the rounded mean of the
 tile's real-pixel flow (summed in float64, divided in float32, rounded
 half to even), clamped; each pixel's residual flow - base is clamped to
-+-bres and the 5-channel table is read bilinearly at pixel + base +
++-bres and the C-channel table is read bilinearly at pixel + base +
 residual (weights w0 = 1 - frac, w1 = 1 - w0; the TPU's (2*bres+1)^2-tap
 sum has no other nonzero terms). Reads outside the table are 0. Two
 layouts, told apart by the table's dtype:
 
 - bf16: the fused engine's halo'd table (5, hp + 2*HALO_Y, wp + 2*HALO_X)
   with the frame at (HALO_Y, HALO_X), flow (2, hp, wp) with zero pads,
-  counts (hp / th, wp / tw), base clamped to +-(HALO - bres - 1)
-  -> (5, hp, wp) f32 (``_warp_subcols``);
-- float32: a channels-last table (h, w, 5), flow (h, w, 2), counts
-  (ceil(h / th), ceil(w / tw)) (``frame_counts``), base clamped to
-  +-max_base -> (h, w, 5) f32 (``_warp5_tiled``).
+  counts (hp / th, wp / tw) from the caller, base clamped to
+  +-(HALO - bres - 1) -> (5, hp, wp) f32 (``_warp_subcols``);
+- float32: a channels-last table (h, w, C) for C in ``CHANNELS`` (the
+  channel counts of ``_warp5_tiled``'s callers), flow (h, w, 2), each
+  tile's real-pixel count ``frame_counts`` (derived from the geometry, so
+  the caller passes None or that tensor), base clamped to +-max_base ->
+  (h, w, C) f32 (``_warp5_tiled``).
 
-``warp_tiles`` launches K8 on CUDA tensors (counted in
-``warp_tiles.launches``) and runs ``warp_tiles_plain`` on CPU tensors;
-``warp_tiles_nobase`` is the bf16 layout with base 0 (the tool's variant
-"Z", the floor of the tap stream), a separate instance of the kernel.
+``warp_tiles`` launches K8 once on CUDA tensors (counted in
+``warp_tiles.launches``): one thread-block cluster of S CTAs per tile
+(``tiles_plan``) that reduces the tile's base and samples it in the same
+launch. On CPU tensors it runs ``warp_tiles_plain``. ``warp_tiles_nobase``
+is the bf16 layout with base 0 (the tool's variant "Z", the floor of the
+tap stream), a separate instance of the kernel without the reduction.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ripcurrents_tpu_torch import kernels
+from ripcurrents_tpu_torch.flow import fused_update as fu
 from ripcurrents_tpu_torch.flow.fused_update import HALO_X, HALO_Y
 
 # Base clamp of the frame layout (the JAX _warp5_tiled's max_base).
@@ -136,6 +141,15 @@ warp5_shift.launches = 0
 # K8: the tiled base + residual warp
 # ---------------------------------------------------------------------------
 
+# Channel counts of the frame layout: the Farneback table (5), and the
+# gray (1) and colour (3) frames of _warp5_tiled's other callers.
+CHANNELS = (1, 3, 5)
+# K8's CTA sizes: the plan takes one of these (kMaxThreads in
+# csrc/warp_tiles.cu is the largest), about PIX_PER_THREAD pixels a thread.
+THREADS = (128, 256, 512)
+PIX_PER_THREAD = 16
+
+
 @functools.lru_cache(maxsize=64)
 def frame_counts(h: int, w: int, th: int, tw: int,
                  device: torch.device) -> torch.Tensor:
@@ -149,11 +163,45 @@ def frame_counts(h: int, w: int, th: int, tw: int,
     return torch.from_numpy(counts.astype(np.float32)).to(device)
 
 
-def _split_rows(th: int, tw: int) -> int:
-    """Rows per slab of the base pass: ~2048 pixels per block, at most 64
-    slabs per tile."""
-    rows = max(1, 2048 // tw)
-    return max(rows, -(-th // 64))
+def tiles_plan(rows: int, cols: int, th: int, tw: int,
+               active: dict) -> dict:
+    """K8's launch for rows x cols pixels (the frame, or the halo layout's
+    padded (hp, wp)) in (th, tw) tiles: S CTAs per tile, CTA r taking the
+    tile's rows [r * th // S, (r + 1) * th // S), each of T threads, the
+    least of THREADS that gives a thread at most PIX_PER_THREAD pixels of
+    the largest slab (else the largest). S is the largest power of two
+    <= min(MAX_CLUSTER, th) at which the card holds every cluster of the
+    call at once (tiles <= active[T][S], `active` mapping a CTA size to
+    {S: clusters of S CTAs the card holds}: no cluster waits for another),
+    else 1. The no-base instance takes the same plan, unclustered.
+    -> {"S", "ctas", "threads", "grid": (S, ntx, nty)}."""
+    nty, ntx = -(-rows // th), -(-cols // tw)
+    tiles = nty * ntx
+
+    def threads(s):
+        pixels = -(-th // s) * min(tw, cols)
+        return next((t for t in THREADS if t * PIX_PER_THREAD >= pixels),
+                    THREADS[-1])
+
+    s = 1
+    while 2 * s <= min(fu.MAX_CLUSTER, th) and \
+            tiles <= active[threads(2 * s)].get(2 * s, 0):
+        s *= 2
+    return {"S": s, "ctas": tiles * s, "threads": threads(s),
+            "grid": (s, ntx, nty)}
+
+
+@functools.lru_cache(maxsize=1)
+def tile_clusters() -> dict:
+    """{T: {S: K8 clusters of S CTAs of T threads the card holds at once}}
+    for T in THREADS, the least over K8's clustered instances."""
+    return {t: kernels.active_clusters("warp_tiles_active_clusters",
+                                       fu.MAX_CLUSTER, t) for t in THREADS}
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(rows: int, cols: int, th: int, tw: int) -> dict:
+    return tiles_plan(rows, cols, th, tw, tile_clusters())
 
 
 def tile_bases_plain(flow_cf: torch.Tensor, counts: torch.Tensor, th: int,
@@ -173,10 +221,10 @@ def tile_bases_plain(flow_cf: torch.Tensor, counts: torch.Tensor, th: int,
 def _sample_plain(table_cf: torch.Tensor, origin: tuple[int, int],
                   flow_cf: torch.Tensor, base, th: int, tw: int, bres: int,
                   out_hw: tuple[int, int]) -> torch.Tensor:
-    """The bilinear read of table_cf (5, TR, TC) (0 outside it; pixel
+    """The bilinear read of table_cf (C, TR, TC) (0 outside it; pixel
     (0, 0) at `origin`) at pixel + base + clamped residual for the
     out_hw pixels of flow_cf (2, FH, FW); base (2, nty, ntx) or None (0)
-    -> (5, oh, ow) float32."""
+    -> (C, oh, ow) float32."""
     oh, ow = out_hw
     dev = flow_cf.device
     dx, dy = flow_cf[0, :oh, :ow], flow_cf[1, :oh, :ow]
@@ -213,10 +261,11 @@ def _sample_plain(table_cf: torch.Tensor, origin: tuple[int, int],
 def _check_tiles(table, flow, counts, th, tw, bres, max_base):
     """Validate K8's inputs; -> (halo layout?, geometry)."""
     dev = flow.device
+    if table.dim() != 3 or flow.dim() != 3:
+        raise ValueError("expected a 3-d table and flow: (5, Hp+2*HALO_Y, "
+                         "Wp+2*HALO_X) and (2, Hp, Wp), or (h, w, C) and "
+                         "(h, w, 2)")
     if table.dtype == torch.bfloat16:
-        if table.dim() != 3 or flow.dim() != 3:
-            raise ValueError("halo layout: table (5, Hp+2*HALO_Y, "
-                             "Wp+2*HALO_X) and flow (2, Hp, Wp)")
         hp, wp = flow.shape[1], flow.shape[2]
         want = {"table": (table, torch.bfloat16,
                           (5, hp + 2 * HALO_Y, wp + 2 * HALO_X)),
@@ -224,17 +273,19 @@ def _check_tiles(table, flow, counts, th, tw, bres, max_base):
         if counts is not None:
             want["counts"] = (counts, torch.float32,
                               (hp // max(th, 1), wp // max(tw, 1)))
-        bad_geom = (th < 1 or tw < 1 or hp % th or wp % tw or
+        bad_geom = (th < 1 or tw < 1 or tw % 4 or hp % th or wp % tw or
                     not 0 <= bres < HALO_Y - 1)
         geom = (hp, wp)
     else:
-        if table.dim() != 3 or flow.dim() != 3:
-            raise ValueError("frame layout: table (h, w, 5), flow (h, w, 2)")
-        h, w = table.shape[0], table.shape[1]
-        want = {"table": (table, torch.float32, (h, w, 5)),
-                "flow": (flow, torch.float32, (h, w, 2)),
-                "counts": (counts, torch.float32,
-                           (-(-h // max(th, 1)), -(-w // max(tw, 1))))}
+        h, w, c = table.shape
+        if c not in CHANNELS:
+            raise ValueError(f"table: {c} channels; the frame layout takes "
+                             f"{CHANNELS}")
+        want = {"table": (table, torch.float32, (h, w, c)),
+                "flow": (flow, torch.float32, (h, w, 2))}
+        if counts is not None:
+            want["counts"] = (counts, torch.float32,
+                              (-(-h // max(th, 1)), -(-w // max(tw, 1))))
         bad_geom = th < 1 or tw < 1 or bres < 0 or max_base < 0
         geom = (h, w)
     for name, (t, dtype, shape) in want.items():
@@ -243,6 +294,8 @@ def _check_tiles(table, flow, counts, th, tw, bres, max_base):
             raise ValueError(f"{name}: expected contiguous {dtype} "
                              f"{tuple(shape)} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    if table.numel() >= 2 ** 31:
+        raise ValueError("table: 2^31 elements or more (32-bit offsets)")
     if bad_geom:
         raise ValueError(f"bad geometry: {tuple(flow.shape)} tile "
                          f"{(th, tw)} bres {bres} max_base {max_base}")
@@ -250,9 +303,10 @@ def _check_tiles(table, flow, counts, th, tw, bres, max_base):
 
 
 def warp_tiles_plain(table: torch.Tensor, flow: torch.Tensor,
-                     counts: torch.Tensor, th: int, tw: int, bres: int,
-                     max_base: int = MAX_BASE) -> torch.Tensor:
-    """Plain PyTorch version of K8 (same roundings), either layout."""
+                     counts: "torch.Tensor | None", th: int, tw: int,
+                     bres: int, max_base: int = MAX_BASE) -> torch.Tensor:
+    """Plain PyTorch version of K8 (same roundings), either layout (the
+    frame layout takes its counts from ``frame_counts``)."""
     if table.dtype == torch.bfloat16:
         hp, wp = flow.shape[1], flow.shape[2]
         base = tile_bases_plain(flow, counts, th, tw, HALO_X - bres - 1,
@@ -261,38 +315,44 @@ def warp_tiles_plain(table: torch.Tensor, flow: torch.Tensor,
                              bres, (hp, wp))
     h, w = table.shape[0], table.shape[1]
     flow_cf = flow.permute(2, 0, 1)
-    base = tile_bases_plain(flow_cf, counts, th, tw, max_base, max_base)
+    base = tile_bases_plain(flow_cf, frame_counts(h, w, th, tw, flow.device),
+                            th, tw, max_base, max_base)
     out = _sample_plain(table.permute(2, 0, 1), (0, 0), flow_cf, base, th,
                         tw, bres, (h, w))
     return out.permute(1, 2, 0).contiguous()
 
 
 def warp_tiles(table: torch.Tensor, flow: torch.Tensor,
-               counts: torch.Tensor, th: int, tw: int, bres: int,
+               counts: "torch.Tensor | None", th: int, tw: int, bres: int,
                max_base: int = MAX_BASE) -> torch.Tensor:
     """K8: the tiled base + residual warp of `table` by `flow` -> the
-    samples, float32, in the table's layout (see the module docstring)."""
+    samples, float32, in the table's layout (see the module docstring).
+    The halo layout needs `counts`; the frame layout takes None or
+    ``frame_counts``' tensor."""
     halo, (gh, gw) = _check_tiles(table, flow, counts, th, tw, bres,
                                   max_base)
+    if halo and counts is None:
+        raise ValueError("halo layout: counts (hp / th, wp / tw) needed")
     dev = flow.device
     if not kernels.launches_on(dev):
         return warp_tiles_plain(table, flow, counts, th, tw, bres, max_base)
-    rows = _split_rows(th, tw)
-    part = torch.empty((counts.numel() * -(-th // rows), 2),
-                       dtype=torch.float64, device=dev)
+    plan = _launch_plan(gh, gw, th, tw)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if flow.data_ptr() % 16:
+        raise ValueError("warp_tiles: flow must be 16-byte aligned (float4 "
+                         "loads)")
     if halo:
         out = torch.empty((5, gh, gw), dtype=torch.float32, device=dev)
         err = kernels.entry("warp_tiles_halo")(
             table.data_ptr(), flow.data_ptr(), counts.data_ptr(),
-            part.data_ptr(), out.data_ptr(), gh, gw, th, tw, bres, rows,
-            stream)
+            out.data_ptr(), gh, gw, th, tw, bres, plan["S"],
+            plan["threads"], stream)
     else:
-        out = torch.empty((gh, gw, 5), dtype=torch.float32, device=dev)
+        c = table.shape[2]
+        out = torch.empty((gh, gw, c), dtype=torch.float32, device=dev)
         err = kernels.entry("warp_tiles_frame")(
-            table.data_ptr(), flow.data_ptr(), counts.data_ptr(),
-            part.data_ptr(), out.data_ptr(), gh, gw, th, tw, bres, max_base,
-            rows, stream)
+            table.data_ptr(), flow.data_ptr(), out.data_ptr(), gh, gw, c, th,
+            tw, bres, max_base, plan["S"], plan["threads"], stream)
     kernels.check(err, "warp_tiles")
     warp_tiles.launches += 1
     return out
@@ -321,10 +381,12 @@ def warp_tiles_nobase(table: torch.Tensor, flow: torch.Tensor, th: int,
     dev = flow.device
     if not kernels.launches_on(dev):
         return warp_tiles_nobase_plain(table, flow, th, tw, bres)
+    plan = _launch_plan(hp, wp, th, tw)
     out = torch.empty((5, hp, wp), dtype=torch.float32, device=dev)
     err = kernels.entry("warp_tiles_halo_nobase")(
         table.data_ptr(), flow.data_ptr(), out.data_ptr(), hp, wp, th, tw,
-        bres, torch.cuda.current_stream(dev).cuda_stream)
+        bres, plan["S"], plan["threads"],
+        torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "warp_tiles_nobase")
     warp_tiles_nobase.launches += 1
     return out

@@ -77,12 +77,15 @@ _ENTRIES = {
     "warp5_shift": ("warp5_shift", "warp5_shift_launch",
                     [_P, _P, _P, _I, _I, _I, _P]),
     "warp_tiles_halo": ("warp_tiles", "warp_tiles_halo_launch",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "warp_tiles_halo_nobase": ("warp_tiles", "warp_tiles_halo_nobase_launch",
-                               [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+                               [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _P]),
     "warp_tiles_frame": ("warp_tiles", "warp_tiles_frame_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P]),
+    "warp_tiles_active_clusters": ("warp_tiles",
+                                   "warp_tiles_active_clusters", [_I, _I]),
 }
 _STEMS = tuple(dict.fromkeys(stem for stem, _, _ in _ENTRIES.values()))
 
@@ -165,6 +168,22 @@ def card_sms(device: torch.device) -> int:
     if device.type != "cuda":
         return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def active_clusters(name: str, largest: int, *args) -> dict:
+    """{S: clusters of S CTAs the card holds at once} for S = 1, 2, 4,
+    ..., `largest`, from the occupancy query `name` of ``_ENTRIES``
+    (cudaOccupancyMaxActiveClusters; `args` follow S); raises when the
+    query fails."""
+    query = entry(name)
+    out = {}
+    for k in range(largest.bit_length()):
+        got = query(1 << k, *args)
+        if got < 0:
+            raise RuntimeError(f"{name}: cluster occupancy query failed "
+                               f"with CUDA error {-got}")
+        out[1 << k] = got
+    return out
 
 
 def launches_on(device: torch.device) -> bool:
