@@ -18,7 +18,8 @@ Every phase passes or raises (the script catches nothing):
    640x480 level 0 of the legacy preset (table (5, 544, 896) bf16, bres 4,
    128-wide subcolumns, box 3) and 1080p level 0 of the windowed preset
    (bres 1, 640-wide subcolumns, Gaussian 10); K1 at every level of the
-   legacy and dense-mode 640x480 pyramids and of the 1080p windowed one,
+   legacy, dense-mode and android 640x480 pyramids (android's down to
+   60x80) and of the 1080p windowed one,
    with its cluster size S, CTAs, device time (median of 50 launches) and
    bound per level and its device time per frame; K2 at every level (its
    tile per level; pads zeroed, and at level 0 also not) and K4
@@ -84,7 +85,22 @@ Every phase passes or raises (the script catches nothing):
 8. ``bench_warp`` (the fused engine's warp stage alone at 1080p) at both
    configurations of ``tools/bench_warp_variants.py`` (bres 2 with
    384-wide subcolumns, bres 1 with 640-wide ones): K8, its no-base floor,
-   K1 and ``grid_sample``, with K8's bound and plain version.
+   K1 and ``grid_sample``, with K8's bound and plain version;
+9. ``android`` and the five simple modes (``averageHSV``, ``timex``,
+   ``brightColor``, ``phaseCorrelate``, ``globalOrientation``) stepped at
+   640x480 from 1280x720 frames, a few frames each (android from a state
+   at i = 89 with a live accumulator, so it crosses the 90-frame overlay
+   warmup): finite outputs of the right shape that move, a live android
+   accumulator and red overlay, the timex mean moving; host-clock ms per
+   frame, device kernels in one traced frame and K launches per frame
+   (android K1 and K2 12, K4 3, K5 and K6 4; the others none);
+   averageHSV's device memory (its 300-frame ring); then each mode at
+   192x256 on the card against the same steps on the CPU;
+10. the 1080p detector golden: ``detector_mask_scan`` (legacy preset)
+   over the 48-frame 1920x1080 rip clip (``synthetic.make_rip_clip``)
+   against the cv2 oracle mask (``assets/detector_oracle_1080p_48f_v2
+   .npz``): ``detector_1080p_iou`` (at least ``DETECTOR_IOU``) and the
+   mask share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -103,16 +119,19 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ripcurrents_tpu_torch import bench_warp, kernels
-from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
+from ripcurrents_tpu_torch import bench_warp, convert, kernels
+from ripcurrents_tpu_torch.config import (ANDROID_OVERLAY_WARMUP,
+                                          FarnebackParams, LKParams)
 from ripcurrents_tpu_torch.dynamics.particles import timeline_init
 from ripcurrents_tpu_torch.flow import farneback as fb
 from ripcurrents_tpu_torch.flow import fused_update as fu
@@ -120,11 +139,14 @@ from ripcurrents_tpu_torch.flow import lucas_kanade as lk
 from ripcurrents_tpu_torch.flow import prep_kernel, warp_kernel
 from ripcurrents_tpu_torch.flow.lk_kernel import (PATCH_MARGIN, lk_track,
                                                   lk_track_plain)
+from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
+                                                  phase_correlate)
 from ripcurrents_tpu_torch.ops import image as img_ops
 from ripcurrents_tpu_torch.pipelines import modes, runner
-from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
+from ripcurrents_tpu_torch.pipelines.common import (MODES, ModeConfig,
+                                                    detector_mask_scan)
 from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
-from ripcurrents_tpu_torch.synthetic import moving_frames
+from ripcurrents_tpu_torch.synthetic import make_rip_clip, moving_frames
 from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
                                                 reset_launches)
 
@@ -191,13 +213,16 @@ DENSE_PIXEL_SHARE = 0.98
 
 RAW_H, RAW_W = 720, 1280
 FRAMES = 40
+ASSETS = pathlib.Path(kernels.__file__).resolve().parent / "assets"
 # The pyramids whose every level K1 is checked and timed at: the legacy
 # detector's, the dense modes' (windowed() and subtract_average() share
-# these K1 geometries at 640x480) and the 1080p windowed stream's.
+# these K1 geometries at 640x480), the 1080p windowed stream's and
+# android's 4 levels (down to 60x80).
 K1_PYRAMIDS = {
     "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
     "dense 640x480": ((480, 640), FarnebackParams.windowed()),
     "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
+    "android 640x480": ((480, 640), FarnebackParams.android()),
 }
 # The pyramids whose every level K5 and K6 are timed at: the legacy
 # detector's and the 1080p windowed stream's.
@@ -1160,12 +1185,14 @@ def run_dense_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
     return host_ms, ev_ms, launches, out
 
 
-def ring_step_memory(device, steps=5, cfg: ModeConfig = ModeConfig()):
-    """``averageVector`` (its 300-frame ring) stepped by hand at 640x480:
-    (MiB of device memory its state holds after init, MiB of the peak
-    during `steps` steps above what was allocated before init)."""
+def ring_step_memory(device, steps=5, cfg: ModeConfig = ModeConfig(),
+                     mode="averageVector"):
+    """A mode with a 300-frame ring (``averageVector``'s of flow,
+    ``averageHSV``'s of BGR frames) stepped by hand at 640x480: (MiB of
+    device memory its state holds after init, MiB of the peak during
+    `steps` steps above what was allocated before init)."""
     raw = moving_frames(steps + 1, RAW_H, RAW_W, device)
-    init, step = MODES["averageVector"](cfg, device=device)
+    init, step = MODES[mode](cfg, device=device)
     torch.cuda.synchronize(device)
     base = torch.cuda.memory_allocated(device)
     state = init(raw[0])
@@ -1246,6 +1273,205 @@ def compare_dense_small(device, mode="subtructAverageVectorWithWindow",
 # both engines (phase [7]).
 TILED_SMALL = ModeConfig(xdim=256, ydim=192, window_size=3,
                          warp_impl="tiled")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: android and the five simple modes
+# ---------------------------------------------------------------------------
+
+SIMPLE_MODES = ("android", "averageHSV", "timex", "brightColor",
+                "phaseCorrelate", "globalOrientation")
+# android's kernel launches per frame: its 4 pyramid levels run 3
+# iterations of K1 and K2 each, K4 at the 3 level changes, and K5 and K6
+# expand the new frame once per level.
+ANDROID_LAUNCHES = {"K1": 12, "K2": 12, "K3": 0, "K4": 3, "K5": 4, "K6": 4,
+                    "K7": 0, "K8": 0}
+# android on the card vs on the CPU over 3 frames from a live state
+# crossing the overlay warmup (the limits of tests/test_torch_android.py's
+# whole step against JAX): the flows differ by the frame resize's and the
+# prep's matmul rounding, which the cumulative threshold walk can turn into
+# a reclassified pixel.
+ANDROID_IOU = 0.9
+ANDROID_SHARE = 0.99
+# phaseCorrelate on the card vs on the CPU: cuFFT and the CPU's FFT round
+# the float32 spectrum differently, so the shift on the same crops may
+# differ in its last bits (PHASE_SHIFT_PX), and the corrected frame, a
+# bilinear blend rounded to uint8, by one level on a pixel whose blend
+# lies near a rounding edge: at most one level, on at most
+# 1 - DENSE_PIXEL_SHARE of the pixels (the rationale of the dense modes'
+# limit).
+PHASE_SHIFT_PX = 1e-3
+# the 1080p detector golden: IoU of the port's detector_mask_scan against
+# the cv2 oracle mask. The JAX engine scored 0.9863 on a TPU v5e
+# (BENCH_r05.json), a reference for accuracy only.
+DETECTOR_IOU = 0.95
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def live_android_state(state, seed=9):
+    """An android state at i = ANDROID_OVERLAY_WARMUP - 1 whose
+    accumulator mixes low- and mid-duty pixels in a band of columns, so
+    the local windows there win and the red overlay shows past the
+    warmup."""
+    i = ANDROID_OVERLAY_WARMUP - 1
+    h, w = state.accumulator.shape
+    g = torch.Generator().manual_seed(seed)
+    lo = torch.randint(0, int(0.04 * i), (h, w), generator=g)
+    mid = torch.randint(int(0.08 * i), int(0.17 * i), (h, w), generator=g)
+    mix = torch.where(torch.rand((h, w), generator=g) < 0.5, lo, mid)
+    acc = torch.full((h, w), 0.5 * i)
+    acc[:, w // 4:3 * w // 4] = mix[:, w // 4:3 * w // 4].float()
+    return state._replace(
+        accumulator=acc.to(state.accumulator.device),
+        i=torch.full_like(state.i, i))
+
+
+def run_simple_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
+                    raw_hw=(RAW_H, RAW_W), warm=2):
+    """One of the six modes stepped by hand over `frames` synthetic raw
+    frames (android from a live state at i = 89, so it crosses the
+    overlay warmup), every launch counter set to 0 just before. Returns
+    (ms per warm frame by host clock, launches {kernel: n}, device kernels
+    per frame from one traced frame, last output); raises on a bad output,
+    a state that is not finite or an output that does not move."""
+    raw = moving_frames(frames + 2, *raw_hw, device)
+    init, step = MODES[mode](cfg, device=device)
+    state = init(raw[0])
+    if mode == "android":
+        state = live_android_state(state)
+    _sync(device)
+    reset_launches()
+    outs, prev = [], None
+    for t in range(1, frames + 1):
+        if t == warm + 1:
+            _sync(device)
+            t0 = time.perf_counter()
+        prev, (state, out) = state, step(state, raw[t])
+        outs.append(out)
+    _sync(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
+    launches = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, raw[frames + 1])
+        _sync(device)
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    out = outs[-1]
+    if tuple(out.shape) != (cfg.ydim, cfg.xdim, 3) or \
+            out.dtype != torch.uint8:
+        raise AssertionError(f"{mode}: output {out.dtype} "
+                             f"{tuple(out.shape)}")
+    bad = [k for k, v in convert.state_to_numpy(state).items()
+           if v.dtype.kind == "f" and not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{mode}: non-finite state {bad}")
+    if bool((outs[-1] == outs[0]).all()):
+        raise AssertionError(f"{mode}: the output does not move")
+    if mode == "android":
+        # red overlay pixels: R set to 255 where the frame's R is not
+        resized = img_ops.resize_area(raw[frames], (cfg.ydim, cfg.xdim))
+        red = int(((out[..., 2] == 255) & (resized[..., 2] != 255)).sum())
+        if float(state.accumulator.sum()) <= 0 or red == 0:
+            raise AssertionError(f"android: accumulator or overlay not "
+                                 f"live ({red} red pixels)")
+    if mode == "timex" and torch.equal(
+            state.sum_rgb / state.framecount.float(),
+            prev.sum_rgb / prev.framecount.float()):
+        raise AssertionError("timex: the mean does not move")
+    return host_ms, launches, n_kernels, out
+
+
+def compare_simple_small(device, mode, n=3):
+    """One of the six modes at 192x256 on `device` against the same steps
+    on the CPU (plain versions), from the same state and frames; android
+    from a live state crossing the warmup. The simple modes: outputs equal
+    on >= MODE_PIXEL_SHARE of pixels (the frame resize's matmul rounds
+    differently on the card); phaseCorrelate: the PHASE_SHIFT_PX and
+    DENSE_PIXEL_SHARE limits; android: the red overlay's IoU >=
+    ANDROID_IOU, the overlays and accumulators equal on >= ANDROID_SHARE.
+    Raises past the limits."""
+    cfg = ModeConfig(xdim=256, ydim=192, average_buffer=4, bright_window=3,
+                     phase_roi=(150, 60, 64, 64))
+    raw = moving_frames(n + 1, 288, 384, torch.device("cpu"))
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        init, step = MODES[mode](cfg, device=dev)
+        state = init(raw[0])
+        if mode == "android":
+            state = live_android_state(state)
+        for t in range(1, n + 1):
+            state, out = step(state, raw[t])
+        res[dev.type] = (state, out.cpu())
+    (sg, og), (sc, oc) = res[device.type], res["cpu"]
+    equal = (og == oc).all(dim=-1).float().mean().item()
+    out = {"pixels_equal": equal,
+           "max_level_diff": int((og.int() - oc.int()).abs().max())}
+    if mode == "phaseCorrelate":
+        # the shift of the first step, on the same crops on both devices
+        rx, ry, rw, rh = cfg.phase_roi
+        area = [img_ops.resize_area(r, (cfg.ydim, cfg.xdim)) for r in raw]
+        # read, not bounded: the INTER_AREA frames on the card vs the CPU
+        out["resize_area_equal"] = sum(
+            (img_ops.resize_area(r.to(device), (cfg.ydim, cfg.xdim)).cpu()
+             == a).all(dim=-1).float().mean().item()
+            for r, a in zip(raw, area)) / len(raw)
+        grays = [img_ops.bgr_to_gray(a).float()[ry:ry + rh, rx:rx + rw]
+                 for a in area[:2]]
+        shifts = [phase_correlate(*(g.to(d) for g in grays),
+                                  hanning_window(rh, rw, d)).shift.cpu()
+                  for d in (device, torch.device("cpu"))]
+        out["shift_px"] = shifts[1].tolist()
+        out["shift_diff_px"] = (shifts[0] - shifts[1]).abs().max().item()
+        ok = out["shift_diff_px"] <= PHASE_SHIFT_PX and \
+            out["max_level_diff"] <= 1 and equal >= DENSE_PIXEL_SHARE
+    elif mode == "android":
+        a, b = og[..., 2] == 255, oc[..., 2] == 255
+        out["red_iou"] = ((a & b).sum() / (a | b).sum().clamp(min=1)).item()
+        out["red_pixels"] = int(b.sum())
+        out["accumulator_equal"] = (sg.accumulator.cpu() ==
+                                    sc.accumulator).float().mean().item()
+        ok = out["red_iou"] >= ANDROID_IOU and equal >= ANDROID_SHARE and \
+            out["accumulator_equal"] >= ANDROID_SHARE and out["red_pixels"]
+    else:
+        ok = equal >= MODE_PIXEL_SHARE
+    if not ok:
+        raise AssertionError(f"{mode} on {device} vs CPU: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the 1080p detector golden
+# ---------------------------------------------------------------------------
+
+def detector_golden_1080p(device, frames=48):
+    """The port's detector_mask_scan (legacy preset) on the 48-frame
+    1920x1080 rip clip against the cv2 oracle mask
+    (assets/detector_oracle_1080p_48f_v2.npz). Returns {IoU, mask share,
+    oracle share, host ms per frame}; raises below DETECTOR_IOU."""
+    clip = make_rip_clip(frames)
+    grays = torch.from_numpy(np.ascontiguousarray(clip[..., 0]))
+    oracle = torch.from_numpy(np.load(
+        ASSETS / "detector_oracle_1080p_48f_v2.npz")["want"]) > 0
+    _sync(device)
+    t0 = time.perf_counter()
+    mask = detector_mask_scan(grays, FarnebackParams.legacy(),
+                              device=device)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3 / (frames - 1)
+    got = mask.cpu() > 0
+    iou = ((got & oracle).sum() / (got | oracle).sum()).item()
+    out = {"detector_1080p_iou": iou,
+           "detector_1080p_mask_frac": got.float().mean().item(),
+           "oracle_mask_frac": oracle.float().mean().item(),
+           "host_ms_per_frame": ms}
+    if not iou >= DETECTOR_IOU:
+        raise AssertionError(f"1080p detector golden: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2174,6 +2400,37 @@ def main() -> int:
                                 for k, v in blur.items()}
         rows[i]["us_per_1080p_stream_frame"] = hd[f"{key}_us_per_frame"]
     rows[6]["alternated_us"] = k7_gs
+
+    for mode, n in (("android", 6), ("averageHSV", 5), ("timex", 5),
+                    ("brightColor", 5), ("phaseCorrelate", 5),
+                    ("globalOrientation", 5)):
+        m_ms, m_n, m_kernels, _ = run_simple_mode(dev, mode, n)
+        per_frame = {k: v / n for k, v in m_n.items()}
+        start = " from i = 89 (across the overlay warmup)" \
+            if mode == "android" else ""
+        print(f"[9] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}{start}"
+              f": {m_ms:.3f} ms/frame (host clock), {m_kernels} device "
+              f"kernels per frame (one traced frame); launches per frame "
+              f"{per_frame}")
+        want = ANDROID_LAUNCHES if mode == "android" else \
+            dict.fromkeys(ANDROID_LAUNCHES, 0)
+        if per_frame != want:
+            raise AssertionError(f"{mode}: expected launches per frame "
+                                 f"{want}")
+    held, peak = ring_step_memory(dev, mode="averageHSV")
+    print(f"[9] averageHSV 640x480: its state holds {held:.1f} MiB of "
+          f"device memory after init; the peak over 5 steps is {peak:.1f} "
+          f"MiB (ring_update writes a new ring each step)")
+    for mode in SIMPLE_MODES:
+        print(f"[9] {mode} 192x256 on the card vs on the CPU: "
+              f"{compare_simple_small(dev, mode)}")
+
+    golden = detector_golden_1080p(dev)
+    print(f"[10] detector_1080p_iou {golden['detector_1080p_iou']:.4f}, "
+          f"detector_1080p_mask_frac {golden['detector_1080p_mask_frac']:.4f}"
+          f" (oracle {golden['oracle_mask_frac']:.4f}); detector_mask_scan "
+          f"over 48 frames of 1920x1080: {golden['host_ms_per_frame']:.3f} "
+          f"ms/frame (host clock)")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Speed classification and temporal wave accumulation (port of the
-legacy-path functions of ``ripcurrents_tpu/analysis/classify.py``:
-create_flow, create_accumulationbuffer and create_output,
-ripcurrents_module.cpp:153-244)."""
+"""Speed classification and temporal wave accumulation (port of
+``ripcurrents_tpu/analysis/classify.py``): create_flow,
+create_accumulationbuffer and create_output
+(ripcurrents_module.cpp:153-244) and their android variants
+(jni/ripcurrents.cpp:223-246, :264-284, :289-320)."""
 
 from __future__ import annotations
 
@@ -75,3 +76,76 @@ def burn_mask_red(subframe_bgr_u8: torch.Tensor,
                               subframe_bgr_u8[..., 2].to(torch.int32)).to(
         torch.uint8)
     return out
+
+
+# --- android variants (jni/ripcurrents.cpp) --------------------------------
+
+def classify_android(ang: torch.Tensor, mag: torch.Tensor, upper, mid,
+                     lower):
+    """jni/ripcurrents.cpp:223-246: classify, and rescale the magnitude
+    into [0, 1] -> (rescaled, waterclass (H, W, 3), fast mask)."""
+    fast = mag > upper
+    rescaled = torch.where(fast, mag,
+                           torch.where(mag > lower,
+                                       (mag - lower) / (upper - lower), 0.0))
+    wx = torch.where(fast, 0.5, 0.0)
+    wz = torch.where(~fast & (mag > mid), 1.0,
+                     torch.where(~fast & (mag > lower), 0.5, 0.0))
+    wy = torch.where(~fast & (mag <= lower), 0.5, 0.0)
+    return rescaled, torch.stack([wx, wy, wz], dim=-1), fast.to(torch.float32)
+
+
+def android_duty_viz(accumulator: torch.Tensor, i) -> torch.Tensor:
+    """jni/ripcurrents.cpp:271-284: the duty fraction in three bands,
+    (H, W, 3): hi (x), low below 5% (y), mid 5-20% (z)."""
+    fi = torch.as_tensor(i, device=accumulator.device).to(torch.float32)
+    val = accumulator.to(torch.int32).to(torch.float32)
+    frac = val / fi
+    hi = val > 0.05 * fi
+    mid = hi & (val < 0.2 * fi)
+    return torch.stack([torch.where(hi & ~mid, frac, 0.0),
+                        torch.where(~hi, frac, 0.0),
+                        torch.where(mid, frac, 0.0)], dim=-1)
+
+
+def _box_sums(c: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+              win: int) -> torch.Tensor:
+    """Sums over the win x win blocks anchored at (ys, xs), from the 2-D
+    prefix sum c (one leading row and column of zeros)."""
+    y, x = ys[:, None], xs[None, :]
+    return c[y + win, x + win] - c[y + win, x] - c[y, x + win] + c[y, x]
+
+
+def android_local_rip(out: torch.Tensor, localwin: int = 20) -> torch.Tensor:
+    """The sliding-window co-occurrence detector
+    (jni/ripcurrents.cpp:289-309): a window (stride localwin, size
+    2*localwin) where both the mid-duty (z) and the low-duty (y)
+    populations exceed localwin^2/1.5 pixels votes for its pixels; the
+    low-duty pixels with 4 votes form the rip overlay. -> (H, W) uint8
+    mask (255 = rip).
+
+    The counts are int32 prefix-sum differences, so they are exact and
+    `votes == 4` is an integer test."""
+    h, w = out.shape[0], out.shape[1]
+    dev = out.device
+    hi = (out[..., 2] != 0).to(torch.int32)
+    lo = (out[..., 1] != 0).to(torch.int32)
+    win = 2 * localwin
+    thresh = localwin * localwin / 1.5
+    # the reference loops y < H - 2*localwin (exclusive)
+    ys = torch.arange(0, max(h - win, 0), localwin, device=dev)
+    xs = torch.arange(0, max(w - win, 0), localwin, device=dev)
+
+    def prefix(a, pad):
+        return torch.cumsum(torch.cumsum(
+            torch.nn.functional.pad(a, (pad, 0, pad, 0)), dim=0), dim=1)
+
+    winning = (_box_sums(prefix(hi, 1), ys, xs, win) > thresh) & \
+        (_box_sums(prefix(lo, 1), ys, xs, win) > thresh)
+    anchors = torch.zeros((h, w), dtype=torch.int32, device=dev)
+    anchors[ys[:, None], xs[None, :]] = winning.to(torch.int32)
+    # votes(y, x): winning anchors in [y-win+1, y] x [x-win+1, x]
+    c = prefix(anchors, win)
+    votes = c[win:, win:] - c[:-win, win:] - c[win:, :-win] + \
+        c[:-win, :-win]
+    return torch.where((votes == 4) & (lo > 0), 255, 0).to(torch.uint8)

@@ -1,8 +1,10 @@
-"""Mean-flow subtraction and temporal flow averaging (port of the
-functions of ``ripcurrents_tpu/analysis/meanflow.py`` that the dense modes
-need): subtructAverage (ripcurrents_module.cpp:810-898), averageVector
-(:386-484) and the sliding-window mean of
-compute_subtructAverageVectorWithWindow (main.cpp:1143-1153).
+"""Mean-flow subtraction, jitter stabilization and temporal averaging
+(port of ``ripcurrents_tpu/analysis/meanflow.py``): subtructAverage
+(ripcurrents_module.cpp:810-898), subtructMeanMagnitude (:900-1015),
+stabilizer (:279-308), averageVector (:386-484), averageHSV (:365-376),
+the sliding-window mean of compute_subtructAverageVectorWithWindow
+(main.cpp:1143-1153) and the reductions of compute_timex and
+compute_brightColor (main.cpp:1195-1382).
 
 A ring buffer keeps the reference's incremental update, "average -=
 old/N; average += new/N", so that its numbers drift as the reference's
@@ -28,6 +30,30 @@ from ripcurrents_tpu_torch.dynamics.advect import delta_field
 def subtract_average(flow: torch.Tensor) -> torch.Tensor:
     """Remove the global mean flow vector (subtructAverage)."""
     return flow - flow.reshape(-1, 2).mean(dim=0)
+
+
+def subtract_mean_magnitude(flow: torch.Tensor) -> torch.Tensor:
+    """Shrink each vector along its direction by the mean magnitude
+    (subtructMeanMagnitude)."""
+    mag = torch.sqrt(torch.sum(flow * flow, dim=-1, keepdim=True))
+    unit = torch.where(mag > 0, flow / torch.clamp(mag, min=1e-20), 0.0)
+    return unit * (mag - mag.mean())
+
+
+def stabilize_flow(flow: torch.Tensor, strength: float = 0.2) -> torch.Tensor:
+    """stabilizer: the camera jitter estimated from the flow of the
+    bottom-right 10% block (assumed static beach), `strength` x that
+    estimate subtracted from every nonzero component.
+
+    The reference's quirk is kept: it divides the block's component sums
+    by one dimension only (sum_x / n_cols, sum_y / n_rows,
+    ripcurrents_module.cpp:295-296), not by the pixel count."""
+    h, w = flow.shape[0], flow.shape[1]
+    block = flow[int(h * 0.9):, int(w * 0.9):]
+    n_rows, n_cols = block.shape[0], block.shape[1]
+    s = block.reshape(-1, 2).sum(dim=0)
+    mean = torch.stack([s[0] / n_cols, s[1] / n_rows])
+    return torch.where(flow != 0, flow - mean * strength, flow)
 
 
 class RingMean(NamedTuple):
@@ -111,3 +137,37 @@ def average_vector(state: AverageVectorState, flow: torch.Tensor, upper,
     return AverageVectorOut(AverageVectorState(ring, new_max), hsv,
                             global_angle, grid_angle,
                             between > math.pi * 0.7)
+
+
+def average_hsv_update(state: RingMean, frame_hsv: torch.Tensor) -> RingMean:
+    """averageHSV: the ring mean of the last N frames."""
+    return ring_update(state, frame_hsv.to(torch.float32))
+
+
+def timex_update(sum_rgb: torch.Tensor,
+                 frame_bgr_u8: torch.Tensor) -> torch.Tensor:
+    """compute_timex: the running sum of the raw frames (the mode divides
+    by the frame count)."""
+    return sum_rgb + frame_bgr_u8.to(torch.float32)
+
+
+def bright_color_reduce(buffer_hsv_u8: torch.Tensor,
+                        option: int) -> torch.Tensor:
+    """compute_brightColor over a (T, H, W, 3) uint8 HSV buffer: option 0
+    = mean, 1 = the pixel of largest V, 2 = the pixel of smallest V (the
+    first frame's on a tie, as argmax and argmin take it).
+
+    Option 0 keeps the reference's uint8 Mat arithmetic
+    (main.cpp:1313,1326): each buffer[i] / windowSize rounds half to even
+    to uint8 before the sum, so the 'average' is a sum of rounded
+    quotients; for nonnegative addends the per-step saturation equals one
+    final clip."""
+    if option == 0:
+        n = buffer_hsv_u8.shape[0]
+        q = torch.clamp(torch.round(buffer_hsv_u8.to(torch.float32) / n),
+                        0, 255)
+        return torch.clamp(q.sum(dim=0), 0, 255).to(torch.uint8)
+    v = buffer_hsv_u8[..., 2].to(torch.int32)
+    idx = torch.argmax(v, dim=0) if option == 1 else torch.argmin(v, dim=0)
+    return torch.take_along_dim(buffer_hsv_u8, idx[None, ..., None],
+                                dim=0)[0]

@@ -169,3 +169,4 @@ class Thresholds:
 # Misc reference constants
 BUFFER_FRAME = 300       # ripcurrents.hpp:11 — ring buffer length for averages
 GRID_COUNT = 30          # ripcurrents.hpp:13 — arrows per row/col in averageVector
+ANDROID_OVERLAY_WARMUP = 90  # jni/ripcurrents.cpp:313 — draw overlay after this

@@ -22,15 +22,20 @@ from ripcurrents_tpu_torch.dynamics.advect import FieldState
 from ripcurrents_tpu_torch.dynamics.particles import (PopulationState,
                                                       TimelineState)
 from ripcurrents_tpu_torch.ops.hist import FlowHistogram
+from ripcurrents_tpu_torch.pipelines.android import AndroidState
 from ripcurrents_tpu_torch.pipelines.common import FlowStream
 from ripcurrents_tpu_torch.pipelines.legacy import LegacyState
 from ripcurrents_tpu_torch.pipelines.modes import (AverageVectorModeState,
+                                                   BrightColorState,
+                                                   GlobalOrientationState,
+                                                   PhaseCorrelateState,
                                                    PopulationMapState,
                                                    RedPointsState,
                                                    ShearState,
                                                    StreaklinesState,
                                                    SubtractAverageState,
                                                    TimelinesState,
+                                                   TimexState,
                                                    TrailsState,
                                                    WindowedState)
 
@@ -166,6 +171,46 @@ def average_vector_state_from_numpy(state,
         AverageVectorState(_ring(state.av.ring, device),
                            t(state.av.max_displacement)),
         t(state.framecount))
+
+
+def android_state_from_numpy(state, device="cpu") -> AndroidState:
+    """A JAX ``AndroidState`` mapped to numpy -> the port's state."""
+    t = lambda a: tensor_from_numpy(a, device)  # noqa: E731
+    return AndroidState(_fstream(state.fstream, device), t(state.stable),
+                        t(state.accumulator), t(state.hist),
+                        t(state.histsum), t(state.i))
+
+
+def average_hsv_state_from_numpy(state, device="cpu") -> RingMean:
+    """A JAX ``averageHSV`` state (a ``RingMean``) mapped to numpy -> the
+    port's state."""
+    return _ring(state, device)
+
+
+def timex_state_from_numpy(state, device="cpu") -> TimexState:
+    """A JAX ``timex`` state mapped to numpy -> the port's state."""
+    return TimexState(*(tensor_from_numpy(a, device) for a in state))
+
+
+def bright_color_state_from_numpy(state, device="cpu") -> BrightColorState:
+    """A JAX ``brightColor`` state mapped to numpy -> the port's state."""
+    return BrightColorState(*(tensor_from_numpy(a, device) for a in state))
+
+
+def phase_correlate_state_from_numpy(state,
+                                     device="cpu") -> PhaseCorrelateState:
+    """A JAX ``phaseCorrelate`` state mapped to numpy -> the port's
+    state."""
+    return PhaseCorrelateState(*(tensor_from_numpy(a, device)
+                                 for a in state))
+
+
+def global_orientation_state_from_numpy(
+        state, device="cpu") -> GlobalOrientationState:
+    """A JAX ``globalOrientation`` state mapped to numpy -> the port's
+    state."""
+    return GlobalOrientationState(*(tensor_from_numpy(a, device)
+                                    for a in state))
 
 
 def state_to_numpy(state) -> dict:

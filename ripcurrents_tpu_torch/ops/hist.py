@@ -1,6 +1,7 @@
 """Flow-magnitude histograms and threshold derivation (port of
 ``ripcurrents_tpu/ops/hist.py``; create_histogram,
-ripcurrents_module.cpp:89-144). Binning is a bincount; the "walk bins
+ripcurrents_module.cpp:89-144, and the android variant,
+jni/ripcurrents.cpp:195-213). Binning is a bincount; the "walk bins
 from the top until 5% of the mass is covered" search is a reversed
 cumulative sum and an argmax."""
 
@@ -89,3 +90,27 @@ def thresholds(h: FlowHistogram, p: HistogramParams) -> FlowThresholds:
     prop = above.to(torch.float32) / torch.clamp(
         threshsum.to(torch.float32), min=1.0)
     return FlowThresholds(upper, upper2d, prop)
+
+
+def bin_1d(mag: torch.Tensor, p: HistogramParams):
+    """One frame's 1-D magnitude histogram (jni/ripcurrents.cpp:195-203):
+    (hist (bins,) int32, histsum () int32)."""
+    bins = (mag * p.resolution).to(torch.int32)
+    valid = (bins >= 0) & (bins < p.bins)
+    flat = torch.where(valid, torch.clamp(bins, 0, p.bins - 1), p.bins)
+    hist = torch.bincount(flat.reshape(-1).long(),
+                          minlength=p.bins + 1)[:-1].to(torch.int32)
+    return hist, hist.sum(dtype=torch.int32)
+
+
+def upper_from_1d(hist: torch.Tensor, histsum: torch.Tensor,
+                  p: HistogramParams) -> torch.Tensor:
+    """The top-frac threshold walk on a (possibly cumulative) 1-D
+    histogram (jni/ripcurrents.cpp:206-213)."""
+    return _top_frac_bin(hist, histsum, p.top_frac).to(
+        torch.float32) / p.resolution
+
+
+def upper_1d(mag: torch.Tensor, p: HistogramParams) -> torch.Tensor:
+    """A single frame's threshold (bin_1d + upper_from_1d)."""
+    return upper_from_1d(*bin_1d(mag, p), p)

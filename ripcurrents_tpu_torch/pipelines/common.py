@@ -1,6 +1,6 @@
 """Shared pipeline plumbing: the mode registry, configuration, frame prep,
-the flow stream (port of the parts of ``ripcurrents_tpu/pipelines/
-common.py`` that the ported modes need)."""
+the flow stream and the detector-core scan (port of the parts of
+``ripcurrents_tpu/pipelines/common.py`` that the ported modes need)."""
 
 from __future__ import annotations
 
@@ -9,12 +9,16 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ripcurrents_tpu_torch import resolve_device
+from ripcurrents_tpu_torch.analysis import classify as cls
 from ripcurrents_tpu_torch.config import (FarnebackParams, HistogramParams,
                                           LKParams, Thresholds, XDIM, YDIM)
 from ripcurrents_tpu_torch.flow.farneback import (farneback_precompute,
                                                   farneback_stream)
+from ripcurrents_tpu_torch.ops import hist as histops
 from ripcurrents_tpu_torch.ops.image import (bgr_to_gray, resize_area,
                                              resize_bilinear)
+from ripcurrents_tpu_torch.ops.polar import flow_to_polar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +41,14 @@ class ModeConfig:
     population_vertices: int = 50
     population_faithful_bias: bool = True
     window_size: int = 10        # subtructAverageVectorWithWindow
-    average_buffer: int = 300    # averageVector ring (BUFFER_FRAME)
+    average_buffer: int = 300    # averageHSV/averageVector ring (BUFFER_FRAME)
     shear_window: int = 100
+    timex_window: int = 500
+    bright_window: int = 50
+    bright_option: int = 0
     n_streamline_seeds: int = 20
     legacy_seeds: int = 250
+    phase_roi: Tuple[int, int, int, int] = (XDIM - 50, 50, 50, 50)
     # Optional Farneback warp override applied on top of each mode's
     # call-site preset (None = keep the preset's choice).
     warp_impl: "str | None" = None
@@ -89,6 +97,39 @@ def flow_stream_step(fs: FlowStream, gray: torch.Tensor,
     """-> (flow (H, W, 2) to the new frame, updated FlowStream)."""
     flow, exp = farneback_stream(fs.exp, gray, fb)
     return flow, FlowStream(exp)
+
+
+def detector_mask_scan(grays, fb: FarnebackParams, hp=None,
+                       upper_init: float = 100.0, warmup: int = 30,
+                       device="cuda") -> torch.Tensor:
+    """The detector core: the duty-cycle rip-mask path of the legacy
+    pipeline (flow -> polar -> cumulative histogram -> top-5% UPPER ->
+    classify -> accumulate -> 10%-duty mask; ripcurrents.cpp:300-439)
+    without its visualizations. grays: (T, H, W) grayscale frames (numpy
+    or tensor), uploaded one at a time. Returns the last frame's (H, W)
+    uint8 mask (255 = candidate rip zone) on `device`. A host loop over
+    the frames."""
+    dev = resolve_device(device)
+    hp = hp or HistogramParams()
+    thr = Thresholds(upper_init=upper_init)
+    h, w = grays.shape[1:]
+    fs = flow_stream_init(to_device(grays[0], dev), fb)
+    hist = histops.empty_histogram(hp, dev)
+    accumulator = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    fc = torch.zeros((), dtype=torch.int32, device=dev)
+    mask = None
+    for t in range(1, grays.shape[0]):
+        fc = fc + 1
+        flow, fs = flow_stream_step(fs, to_device(grays[t], dev), fb)
+        mag, ang = flow_to_polar(flow)
+        hist = histops.accumulate(hist, histops.bin_flow(mag, ang, hp))
+        th = histops.thresholds(hist, hp)
+        res = cls.classify(ang, mag, th.upper, thr.mid, thr.lower,
+                           th.upper2d, hp)
+        accumulator = cls.accumulate_waves(accumulator, res.fast_mask, fc,
+                                           warmup=warmup)
+        mask = cls.duty_cycle_viz(accumulator, fc).outmask
+    return mask
 
 
 # registry: name -> factory(cfg, device="cuda") -> (init_fn, step_fn)

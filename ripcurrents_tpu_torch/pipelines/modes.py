@@ -2,8 +2,10 @@
 ``timelines``, ``streaklines``, ``populationMap``, ``flowRedPoints``,
 ``streamlines``, ``timelinesOnSubtractAverageVector``, ``timelinesFarne``,
 ``subtructAverageVector``, ``subtructAverageVectorWithWindow``,
-``shearRate`` and ``averageVector`` from
-``ripcurrents_tpu/pipelines/modes.py``).
+``shearRate`` and ``averageVector``) and the temporal exposure and
+stabilization modes (``averageHSV``, ``timex``, ``brightColor``,
+``phaseCorrelate`` and ``globalOrientation``) of
+``ripcurrents_tpu/pipelines/modes.py``.
 
 One entry per compute_* function of the reference (RipCurrents_main/
 main.cpp). Each factory takes (cfg, device) and returns (init, step);
@@ -23,13 +25,18 @@ import torch
 
 from ripcurrents_tpu_torch import resolve_device
 from ripcurrents_tpu_torch.analysis import meanflow
+from ripcurrents_tpu_torch.analysis.motion import global_orientation_step
 from ripcurrents_tpu_torch.analysis.shear import shear_to_color
 from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
 from ripcurrents_tpu_torch.dynamics import advect
 from ripcurrents_tpu_torch.dynamics import particles as parts
 from ripcurrents_tpu_torch.flow.lucas_kanade import pyr_lk
-from ripcurrents_tpu_torch.ops.color import hsv_to_bgr
+from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
+                                                  phase_correlate)
+from ripcurrents_tpu_torch.ops.color import hsv_to_bgr, rgb_to_hsv
 from ripcurrents_tpu_torch.ops.colormap import apply_colormap
+from ripcurrents_tpu_torch.ops.image import bgr_to_gray
+from ripcurrents_tpu_torch.ops.warp import translate
 from ripcurrents_tpu_torch.pipelines.common import (FlowStream, ModeConfig,
                                                     fb_preset,
                                                     flow_stream_init,
@@ -491,5 +498,182 @@ def average_vector_mode(cfg: ModeConfig, device="cuda"):
         img = draw.draw_circles(img, anchors, 1, LIME, valid=mask)
         img = draw.draw_arrows(img, anchors, tips, mask, LIME, 1, 0.4)
         return AverageVectorModeState(fs, av.state, state.framecount + 1), img
+
+    return init, step
+
+
+# ---------------------------------------------------------------------------
+# temporal exposure modes (main.cpp:1195-1382)
+# ---------------------------------------------------------------------------
+
+def _u8(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
+@register("averageHSV")
+def average_hsv(cfg: ModeConfig, device="cuda"):
+    """averageHSV (ripcurrents_module.cpp:365-376, driven from the dead
+    main_old.cpp:360): the ring mean of the last BUFFER_FRAME frames. The
+    reference's quirk is kept: despite the name it never converts to HSV
+    (its cvtColor is commented out at ripcurrents_module.cpp:367) and
+    averages the BGR frame. The state is the ring itself
+    (``meanflow.RingMean``; 1.1 GB of float32 at 640x480 and 300
+    frames, copied by each out-of-place step)."""
+    dev = resolve_device(device)
+
+    def init(first_raw):
+        return meanflow.ring_init(cfg.average_buffer,
+                                  (cfg.ydim, cfg.xdim, 3), dev)
+
+    def step(state, raw):
+        resized, _ = prep_frame(to_device(raw, dev), cfg)
+        state = meanflow.average_hsv_update(state, resized)
+        return state, _u8(state.mean)
+
+    return init, step
+
+
+class TimexState(NamedTuple):
+    sum_rgb: torch.Tensor     # (H, W, 3) float32 running sum
+    framecount: torch.Tensor
+
+
+@register("timex")
+def timex(cfg: ModeConfig, device="cuda"):
+    """compute_timex (main.cpp:1195-1263): the running mean of the raw
+    frames."""
+    dev = resolve_device(device)
+
+    def init(first_raw):
+        return TimexState(torch.zeros((cfg.ydim, cfg.xdim, 3),
+                                      dtype=torch.float32, device=dev),
+                          _frame_zero(dev))
+
+    def step(state, raw):
+        resized, _ = prep_frame(to_device(raw, dev), cfg)
+        s = meanflow.timex_update(state.sum_rgb, resized)
+        fc = state.framecount + 1
+        out = draw.draw_frame_count(_u8(s / fc.to(torch.float32)), fc)
+        return TimexState(s, fc), out
+
+    return init, step
+
+
+class BrightColorState(NamedTuple):
+    buffer: torch.Tensor      # (window, H, W, 3) uint8 HSV
+    idx: torch.Tensor         # () int32 next slot
+    framecount: torch.Tensor
+
+
+@register("brightColor")
+def bright_color(cfg: ModeConfig, device="cuda"):
+    """compute_brightColor (main.cpp:1265-1382) over a ring of the last
+    ``bright_window`` frames. The reference's quirks are kept: it converts
+    BGR data with RGB2HSV (main.cpp:1303) and HSV2RGB's output is written
+    to a BGR frame. The new frame goes into a new buffer; the state's is
+    not written."""
+    dev = resolve_device(device)
+
+    def init(first_raw):
+        return BrightColorState(
+            torch.zeros((cfg.bright_window, cfg.ydim, cfg.xdim, 3),
+                        dtype=torch.uint8, device=dev),
+            _frame_zero(dev), _frame_zero(dev))
+
+    def step(state, raw):
+        resized, _ = prep_frame(to_device(raw, dev), cfg)
+        buf = state.buffer.index_copy(0, state.idx.reshape(1).long(),
+                                      rgb_to_hsv(resized)[None])
+        reduced = meanflow.bright_color_reduce(buf, cfg.bright_option)
+        fc = state.framecount + 1
+        out = draw.draw_frame_count(
+            torch.flip(hsv_to_bgr(reduced), dims=(-1,)), fc)
+        return BrightColorState(buf, (state.idx + 1) % cfg.bright_window,
+                                fc), out
+
+    return init, step
+
+
+# ---------------------------------------------------------------------------
+# stabilization modes
+# ---------------------------------------------------------------------------
+
+class PhaseCorrelateState(NamedTuple):
+    prev_resized: torch.Tensor  # the compensated previous frame (BGR u8)
+    framecount: torch.Tensor
+
+
+def _crop(img: torch.Tensor, y: int, x: int, h: int, w: int) -> torch.Tensor:
+    """img[y:y+h, x:x+w] with the start clamped so that the crop fits, as
+    ``jax.lax.dynamic_slice`` clamps it."""
+    y = min(max(y, 0), img.shape[0] - h)
+    x = min(max(x, 0), img.shape[1] - w)
+    return img[y:y + h, x:x + w]
+
+
+@register("phaseCorrelate")
+def phase_correlate_mode(cfg: ModeConfig, device="cuda"):
+    """compute_phaseCorrelate (main.cpp:1684-1775): the translation of a
+    beach ROI between the compensated previous frame and the new one,
+    undone by a bilinear translation. Every frame is resized with
+    INTER_AREA (main.cpp:1736)."""
+    dev = resolve_device(device)
+    rx, ry, rw, rh = cfg.phase_roi
+    win = hanning_window(rh, rw, dev)
+
+    def init(first_raw):
+        resized, _ = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        return PhaseCorrelateState(resized, _frame_zero(dev))
+
+    def step(state, raw):
+        resized, _ = prep_frame(to_device(raw, dev), cfg, first=True)
+        pg = bgr_to_gray(state.prev_resized).to(torch.float32)
+        cg = bgr_to_gray(resized).to(torch.float32)
+        pc = phase_correlate(_crop(pg, ry, rx, rh, rw),
+                             _crop(cg, ry, rx, rh, rw), win)
+        corrected = translate(resized, -pc.shift[0], -pc.shift[1])
+        return PhaseCorrelateState(corrected, state.framecount + 1), \
+            corrected
+
+    return init, step
+
+
+class GlobalOrientationState(NamedTuple):
+    prev_gray: torch.Tensor
+    framecount: torch.Tensor
+
+
+@register("globalOrientation", gray_input=True)
+def global_orientation_mode(cfg: ModeConfig, device="cuda"):
+    """globalOrientation (ripcurrents_module.cpp:319-359) as a mode: the
+    motion-history image, the global direction arrow and a 30-px grid of
+    local orientation arrows."""
+    dev = resolve_device(device)
+    center = torch.tensor([[cfg.xdim / 2.0, cfg.ydim / 2.0]], device=dev)
+    ys, xs = np.mgrid[0:cfg.ydim:30, 0:cfg.xdim:30]
+    grid = torch.from_numpy(np.stack([xs.ravel(), ys.ravel()], -1).astype(
+        np.float32)).to(dev)
+    gy, gx = grid[:, 1].long(), grid[:, 0].long()
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    every = torch.ones(grid.shape[0], dtype=torch.bool, device=dev)
+
+    def init(first_raw):
+        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        return GlobalOrientationState(gray, _frame_zero(dev))
+
+    def step(state, raw):
+        _, gray = prep_frame(to_device(raw, dev), cfg)
+        res = global_orientation_step(state.prev_gray, gray)
+        out = _u8(res.mhi_norm * 255.0)[..., None].repeat(1, 1, 3)
+        ar = res.angle_deg * math.pi / 180.0
+        tip = center + torch.stack([torch.cos(ar) * 10.0,
+                                    torch.sin(ar) * 50.0])[None, :]
+        out = draw.draw_circles(out, center, 3, GOLD)
+        out = draw.draw_arrows(out, center, tip, one, GOLD, 2, 0.2)
+        gr = res.orientation.orientation_deg[gy, gx] * math.pi / 180.0
+        tips = grid + torch.stack([torch.cos(gr), torch.sin(gr)], -1) * 10.0
+        out = draw.draw_circles(out, grid, 1, (0, 215, 0))
+        out = draw.draw_arrows(out, grid, tips, every, (0, 215, 0), 1, 0.4)
+        return GlobalOrientationState(gray, state.framecount + 1), out
 
     return init, step

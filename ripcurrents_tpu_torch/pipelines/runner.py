@@ -24,6 +24,7 @@ import torch
 from ripcurrents_tpu_torch import resolve_device
 from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
 # mode registration side effects
+from ripcurrents_tpu_torch.pipelines import android as _android  # noqa: F401
 from ripcurrents_tpu_torch.pipelines import legacy as _legacy  # noqa: F401
 from ripcurrents_tpu_torch.pipelines import modes as _modes  # noqa: F401
 

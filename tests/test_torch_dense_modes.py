@@ -305,7 +305,7 @@ def test_legends_and_drawing_exact():
 def test_run_frames_equals_stepping_by_hand_and_registry():
     """run_frames over a dense mode (its own init: the port's tables, the
     port's engine) yields what stepping by hand yields; the registry holds
-    the twelve ported modes with the JAX package's gray-input flags."""
+    the eighteen ported modes with the JAX package's gray-input flags."""
     cfg = dataclasses.replace(ModeConfig(**KW), total_frames=len(FRAMES))
     for mode in ("subtructAverageVectorWithWindow", "timelinesFarne"):
         init, step = MODES[mode](cfg, device="cpu")
@@ -322,9 +322,12 @@ def test_run_frames_equals_stepping_by_hand_and_registry():
             assert torch.equal(g, w)
     dense = set(PRESET)
     assert set(MODES) == dense | {"legacy", "timelines", "streaklines",
-                                  "populationMap", "flowRedPoints"}
+                                  "populationMap", "flowRedPoints",
+                                  "android", "averageHSV", "timex",
+                                  "brightColor", "phaseCorrelate",
+                                  "globalOrientation"}
     assert GRAY_INPUT == JAX_GRAY_INPUT & set(MODES) == \
-        {"subtructAverageVector", "averageVector"}
+        {"subtructAverageVector", "averageVector", "globalOrientation"}
     gray = [np.asarray(f)[..., 1] for f in FRAMES]    # 2-D gray frames
     out = list(runner.run_frames("averageVector", gray, ModeConfig(**KW),
                                  device="cpu"))

@@ -20,6 +20,7 @@ import torch
 import jax
 
 from ripcurrents_tpu.config import LKParams as JaxLKParams
+from ripcurrents_tpu.pipelines import android as jandroid  # noqa: F401
 from ripcurrents_tpu.pipelines import legacy as jlegacy  # noqa: F401
 from ripcurrents_tpu.pipelines import modes as jmodes  # noqa: F401
 from ripcurrents_tpu.pipelines.common import MODES as JAX_MODES
@@ -164,7 +165,10 @@ def test_registry_holds_the_ported_modes():
                           "timelinesOnSubtractAverageVector",
                           "timelinesFarne", "subtructAverageVector",
                           "subtructAverageVectorWithWindow", "shearRate",
-                          "averageVector"}
+                          "averageVector", "android", "averageHSV", "timex",
+                          "brightColor", "phaseCorrelate",
+                          "globalOrientation"}
     assert set(MODES) <= set(JAX_MODES)
     with pytest.raises(KeyError):
-        next(runner.run_frames("timex", FRAMES, _cfg(), device="cpu"))
+        next(runner.run_frames("stabilizeTPU", FRAMES, _cfg(),
+                               device="cpu"))
