@@ -19,12 +19,12 @@ Every phase passes or raises (the script catches nothing):
    128-wide subcolumns, box 3) and 1080p level 0 of the windowed preset
    (bres 1, 640-wide subcolumns, Gaussian 10); K1 at every level of the
    legacy, dense-mode and android 640x480 pyramids (android's down to
-   60x80) and of the 1080p windowed one,
+   60x80) and of the 1080p windowed and legacy ones,
    with its cluster size S, CTAs, device time (median of 50 launches) and
    bound per level and its device time per frame; K2 at every level (its
    tile per level; pads zeroed, and at level 0 also not) and K4
    (resize_cf_padded) against its plain version and the dense two-matmul
-   form at every level change of the eight ``BLUR_CHECKS`` geometries,
+   form at every level change of the nine ``BLUR_CHECKS`` geometries,
    both bit for bit (``K2_TOL``, ``K4_TOL`` 0.0); K3 (lk_track) against
    its plain version at 640x480 with 201 points, 1280 points and 2
    streams x 201 points, border and
@@ -95,12 +95,15 @@ Every phase passes or raises (the script catches nothing):
    frame, device kernels in one traced frame and K launches per frame
    (android K1 and K2 12, K4 3, K5 and K6 4; the others none);
    averageHSV's device memory (its 300-frame ring); then each mode at
-   192x256 on the card against the same steps on the CPU;
+   192x256 on the card against the same steps on the CPU (phaseCorrelate:
+   its shift at every step, recomputed from the carried states, and the
+   card's translation of the CPU's frames by the CPU's shifts, equal);
 10. the 1080p detector golden: ``detector_mask_scan`` (legacy preset)
    over the 48-frame 1920x1080 rip clip (``synthetic.make_rip_clip``)
    against the cv2 oracle mask (``assets/detector_oracle_1080p_48f_v2
-   .npz``): ``detector_1080p_iou`` (at least ``DETECTOR_IOU``) and the
-   mask share.
+   .npz``): ``detector_1080p_iou`` (at least ``DETECTOR_IOU``), the
+   mask share and the scan's K1/K2/K4/K5/K6 launches, which must equal
+   what the preset implies (``stream_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -139,12 +142,13 @@ from ripcurrents_tpu_torch.flow import lucas_kanade as lk
 from ripcurrents_tpu_torch.flow import prep_kernel, warp_kernel
 from ripcurrents_tpu_torch.flow.lk_kernel import (PATCH_MARGIN, lk_track,
                                                   lk_track_plain)
-from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
-                                                  phase_correlate)
+from ripcurrents_tpu_torch.flow.phasecorr import hanning_window
 from ripcurrents_tpu_torch.ops import image as img_ops
+from ripcurrents_tpu_torch.ops.warp import translate
 from ripcurrents_tpu_torch.pipelines import modes, runner
 from ripcurrents_tpu_torch.pipelines.common import (MODES, ModeConfig,
-                                                    detector_mask_scan)
+                                                    detector_mask_scan,
+                                                    prep_frame)
 from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
 from ripcurrents_tpu_torch.synthetic import make_rip_clip, moving_frames
 from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
@@ -216,13 +220,15 @@ FRAMES = 40
 ASSETS = pathlib.Path(kernels.__file__).resolve().parent / "assets"
 # The pyramids whose every level K1 is checked and timed at: the legacy
 # detector's, the dense modes' (windowed() and subtract_average() share
-# these K1 geometries at 640x480), the 1080p windowed stream's and
-# android's 4 levels (down to 60x80).
+# these K1 geometries at 640x480), the 1080p windowed stream's,
+# android's 4 levels (down to 60x80) and the 1080p legacy detector's
+# (detector_mask_scan in phase [10]; bres 2).
 K1_PYRAMIDS = {
     "legacy 640x480": ((480, 640), FarnebackParams.legacy()),
     "dense 640x480": ((480, 640), FarnebackParams.windowed()),
     "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
     "android 640x480": ((480, 640), FarnebackParams.android()),
+    "legacy 1080p": ((1080, 1920), FarnebackParams.legacy()),
 }
 # The pyramids whose every level K5 and K6 are timed at: the legacy
 # detector's and the 1080p windowed stream's.
@@ -233,7 +239,8 @@ PREP_PYRAMIDS = {
 # The geometries K5 and K6 are held to their plain versions at, every
 # level: the main paths' tables, the portable engine's channels-last
 # float32 table, a ragged width, the 40x300 pyramid (one-tile coarse
-# levels) and android's 4-level pyramid (a 260-tap L3 window).
+# levels), android's 4-level pyramid (a 260-tap L3 window) and the 1080p
+# legacy detector's tables (phase [10]).
 PREP_CHECKS = {
     "640x480 legacy (5, Ph, Pw) bf16": ((480, 640), FarnebackParams.legacy()),
     "1080p windowed (5, Ph, Pw) bf16": ((1080, 1920),
@@ -244,11 +251,14 @@ PREP_CHECKS = {
     "75x107 legacy (ragged)": ((75, 107), FarnebackParams.legacy()),
     "40x300 legacy": ((40, 300), FarnebackParams.legacy()),
     "640x480 android (4 levels)": ((480, 640), FarnebackParams.android()),
+    "1080p legacy (5, Ph, Pw) bf16": ((1080, 1920),
+                                      FarnebackParams.legacy()),
 }
 # The geometries K2 and K4 are held to their plain versions at, every level
 # (K2) and every level change (K4): the main paths' pyramids (legacy box 3,
 # the dense modes' windowed Gaussian 10 and subtract_average's Gaussian
-# 20, the 1080p stream), android's 4 levels (box 5), a ragged width, the
+# 20, the 1080p stream and the 1080p legacy detector of phase [10]),
+# android's 4 levels (box 5), a ragged width, the
 # 40x300 pyramid, and subtract_average at 40x300, whose 10- and 20-row
 # levels are shorter than its 21-row window.
 BLUR_CHECKS = {
@@ -258,6 +268,7 @@ BLUR_CHECKS = {
                                  FarnebackParams.subtract_average()),
     "windowed 1080p": ((1080, 1920), FarnebackParams.windowed()),
     "android 640x480": ((480, 640), FarnebackParams.android()),
+    "legacy 1080p": ((1080, 1920), FarnebackParams.legacy()),
     "legacy 75x107": ((75, 107), FarnebackParams.legacy()),
     "legacy 40x300": ((40, 300), FarnebackParams.legacy()),
     "subtract_average 40x300": ((40, 300),
@@ -1294,12 +1305,17 @@ ANDROID_LAUNCHES = {"K1": 12, "K2": 12, "K3": 0, "K4": 3, "K5": 4, "K6": 4,
 ANDROID_IOU = 0.9
 ANDROID_SHARE = 0.99
 # phaseCorrelate on the card vs on the CPU: cuFFT and the CPU's FFT round
-# the float32 spectrum differently, so the shift on the same crops may
-# differ in its last bits (PHASE_SHIFT_PX), and the corrected frame, a
-# bilinear blend rounded to uint8, by one level on a pixel whose blend
-# lies near a rounding edge: at most one level, on at most
-# 1 - DENSE_PIXEL_SHARE of the pixels (the rationale of the dense modes'
-# limit).
+# the float32 spectrum differently, so each step's shift may differ in its
+# last bits (PHASE_SHIFT_PX), while the card's translate of the CPU's
+# frames by the CPU's shifts must equal the CPU's frames. Once a step's
+# output differs, the next step correlates different frames, so the
+# card's own shift drifts further by the third step. A shift one
+# float32 ULP apart moves every sample coordinate by up to one ULP, and
+# the bilinear blend, rounded to uint8, then flips by one level on the
+# pixels whose blend lies near a rounding edge: at most one level, on at
+# most 1 - DENSE_PIXEL_SHARE of the pixels. Set from an H100 reading
+# (700 W): the card's own shifts 3.6e-6, 5.5e-6 and 6.6e-4 px from the
+# CPU's over 3 steps, 98.95% of the pixels equal, one level at most.
 PHASE_SHIFT_PX = 1e-3
 # the 1080p detector golden: IoU of the port's detector_mask_scan against
 # the cv2 oracle mask. The JAX engine scored 0.9863 on a TPU v5e
@@ -1391,44 +1407,35 @@ def compare_simple_small(device, mode, n=3):
     on the CPU (plain versions), from the same state and frames; android
     from a live state crossing the warmup. The simple modes: outputs equal
     on >= MODE_PIXEL_SHARE of pixels (the frame resize's matmul rounds
-    differently on the card); phaseCorrelate: the PHASE_SHIFT_PX and
-    DENSE_PIXEL_SHARE limits; android: the red overlay's IoU >=
-    ANDROID_IOU, the overlays and accumulators equal on >= ANDROID_SHARE.
-    Raises past the limits."""
+    differently on the card); phaseCorrelate: ``phase_steps`` within
+    PHASE_SHIFT_PX and translating alike, the outputs at most one level
+    apart on >= DENSE_PIXEL_SHARE of pixels; android: the red overlay's
+    IoU >= ANDROID_IOU, the overlays and accumulators equal on >=
+    ANDROID_SHARE. Raises past the limits."""
     cfg = ModeConfig(xdim=256, ydim=192, average_buffer=4, bright_window=3,
                      phase_roi=(150, 60, 64, 64))
     raw = moving_frames(n + 1, 288, 384, torch.device("cpu"))
     res = {}
     for dev in (device, torch.device("cpu")):
         init, step = MODES[mode](cfg, device=dev)
-        state = init(raw[0])
+        states = [init(raw[0])]
         if mode == "android":
-            state = live_android_state(state)
+            states[0] = live_android_state(states[0])
         for t in range(1, n + 1):
-            state, out = step(state, raw[t])
-        res[dev.type] = (state, out.cpu())
-    (sg, og), (sc, oc) = res[device.type], res["cpu"]
+            state, out = step(states[-1], raw[t])
+            states.append(state)
+        res[dev.type] = (states, out.cpu())
+    (stg, og), (stc, oc) = res[device.type], res["cpu"]
+    sg, sc = stg[-1], stc[-1]
     equal = (og == oc).all(dim=-1).float().mean().item()
     out = {"pixels_equal": equal,
            "max_level_diff": int((og.int() - oc.int()).abs().max())}
     if mode == "phaseCorrelate":
-        # the shift of the first step, on the same crops on both devices
-        rx, ry, rw, rh = cfg.phase_roi
-        area = [img_ops.resize_area(r, (cfg.ydim, cfg.xdim)) for r in raw]
-        # read, not bounded: the INTER_AREA frames on the card vs the CPU
-        out["resize_area_equal"] = sum(
-            (img_ops.resize_area(r.to(device), (cfg.ydim, cfg.xdim)).cpu()
-             == a).all(dim=-1).float().mean().item()
-            for r, a in zip(raw, area)) / len(raw)
-        grays = [img_ops.bgr_to_gray(a).float()[ry:ry + rh, rx:rx + rw]
-                 for a in area[:2]]
-        shifts = [phase_correlate(*(g.to(d) for g in grays),
-                                  hanning_window(rh, rw, d)).shift.cpu()
-                  for d in (device, torch.device("cpu"))]
-        out["shift_px"] = shifts[1].tolist()
-        out["shift_diff_px"] = (shifts[0] - shifts[1]).abs().max().item()
-        ok = out["shift_diff_px"] <= PHASE_SHIFT_PX and \
-            out["max_level_diff"] <= 1 and equal >= DENSE_PIXEL_SHARE
+        out.update(phase_steps(device, cfg, raw, stg, stc))
+        ok = max(out["shift_diff_px"] +
+                 out["shift_diff_same_input_px"]) <= PHASE_SHIFT_PX and \
+            out["translate_equal"] and out["max_level_diff"] <= 1 and \
+            equal >= DENSE_PIXEL_SHARE
     elif mode == "android":
         a, b = og[..., 2] == 255, oc[..., 2] == 255
         out["red_iou"] = ((a & b).sum() / (a | b).sum().clamp(min=1)).item()
@@ -1444,33 +1451,98 @@ def compare_simple_small(device, mode, n=3):
     return out
 
 
+def phase_steps(device, cfg: ModeConfig, raw, states_dev, states_cpu):
+    """phaseCorrelate's steps recomputed from the states each device
+    carried: step t's shift is ``modes.phase_shift`` of the state it
+    started from and its resized frame, and translating that frame by it
+    must give the state the step produced (raises otherwise). Returns, per
+    step, the CPU's shifts, their distance (px) from the card's own and
+    from the card's ``phase_shift`` of the CPU's frames (the same inputs),
+    and whether the card's ``translate`` of the CPU's resized frames by
+    the CPU's shifts equals the CPU's corrected frames at every step."""
+    cpu = torch.device("cpu")
+    rows = {}
+    for dev, states in ((device, states_dev), (cpu, states_cpu)):
+        win = hanning_window(cfg.phase_roi[3], cfg.phase_roi[2], dev)
+        rows[dev.type] = []
+        for t in range(1, len(states)):
+            resized, _ = prep_frame(raw[t].to(dev), cfg, first=True)
+            shift = modes.phase_shift(states[t - 1].prev_resized, resized,
+                                      cfg.phase_roi, win)
+            if not torch.equal(translate(resized, -shift[0], -shift[1]),
+                               states[t].prev_resized):
+                raise AssertionError(f"phaseCorrelate step {t} on {dev}: "
+                                     f"the recomputed shift does not give "
+                                     f"the carried state")
+            rows[dev.type].append((resized, shift))
+    win = hanning_window(cfg.phase_roi[3], cfg.phase_roi[2], device)
+    same_input = [
+        (modes.phase_shift(states_cpu[t].prev_resized.to(device),
+                           r.to(device), cfg.phase_roi, win).cpu() -
+         s).abs().max().item()
+        for t, (r, s) in enumerate(rows["cpu"])]
+    translate_equal = all(
+        torch.equal(translate(r.to(device), -s[0].to(device),
+                              -s[1].to(device)).cpu(),
+                    states_cpu[t + 1].prev_resized)
+        for t, (r, s) in enumerate(rows["cpu"]))
+    return {"shift_px": [s.tolist() for _, s in rows["cpu"]],
+            "shift_diff_px": [(a.cpu() - b).abs().max().item()
+                              for (_, a), (_, b) in
+                              zip(rows[device.type], rows["cpu"])],
+            "shift_diff_same_input_px": same_input,
+            "translate_equal": translate_equal}
+
+
 # ---------------------------------------------------------------------------
 # Phase 10: the 1080p detector golden
 # ---------------------------------------------------------------------------
 
+def stream_launches(p: FarnebackParams, h, w, frames):
+    """The K launches a fused-engine flow stream of preset p makes over
+    `frames` frames of h x w (its first frame included): K5 and K6 expand
+    every frame at every level; each of the frames - 1 flow steps runs K1
+    and K2 once per iteration of each level and K4 at each level
+    change."""
+    _, it_sched = fb._residual_schedule(h, w, p)
+    iters = sum(fb._level_iters(p, it_sched, k)
+                for k in range(p.levels + 1))
+    steps = frames - 1
+    return {"K1": iters * steps, "K2": iters * steps, "K3": 0,
+            "K4": p.levels * steps, "K5": (p.levels + 1) * frames,
+            "K6": (p.levels + 1) * frames, "K7": 0, "K8": 0}
+
+
 def detector_golden_1080p(device, frames=48):
     """The port's detector_mask_scan (legacy preset) on the 48-frame
     1920x1080 rip clip against the cv2 oracle mask
-    (assets/detector_oracle_1080p_48f_v2.npz). Returns {IoU, mask share,
-    oracle share, host ms per frame}; raises below DETECTOR_IOU."""
+    (assets/detector_oracle_1080p_48f_v2.npz), every launch counter set
+    to 0 just before the scan. Returns {IoU, mask share, oracle share,
+    host ms per frame, launches}; raises below DETECTOR_IOU or when the
+    scan's launches differ from ``stream_launches`` (on the card)."""
     clip = make_rip_clip(frames)
     grays = torch.from_numpy(np.ascontiguousarray(clip[..., 0]))
     oracle = torch.from_numpy(np.load(
         ASSETS / "detector_oracle_1080p_48f_v2.npz")["want"]) > 0
+    p = FarnebackParams.legacy()
     _sync(device)
+    reset_launches()
     t0 = time.perf_counter()
-    mask = detector_mask_scan(grays, FarnebackParams.legacy(),
-                              device=device)
+    mask = detector_mask_scan(grays, p, device=device)
     _sync(device)
     ms = (time.perf_counter() - t0) * 1e3 / (frames - 1)
+    launches = launch_counts()
     got = mask.cpu() > 0
     iou = ((got & oracle).sum() / (got | oracle).sum()).item()
     out = {"detector_1080p_iou": iou,
            "detector_1080p_mask_frac": got.float().mean().item(),
            "oracle_mask_frac": oracle.float().mean().item(),
-           "host_ms_per_frame": ms}
-    if not iou >= DETECTOR_IOU:
-        raise AssertionError(f"1080p detector golden: {out}")
+           "host_ms_per_frame": ms, "launches": launches}
+    want = stream_launches(p, *grays.shape[1:], frames) \
+        if device.type == "cuda" else dict.fromkeys(launches, 0)
+    if not iou >= DETECTOR_IOU or launches != want:
+        raise AssertionError(f"1080p detector golden (launches expected "
+                             f"{want}): {out}")
     return out
 
 
@@ -2430,7 +2502,7 @@ def main() -> int:
           f"detector_1080p_mask_frac {golden['detector_1080p_mask_frac']:.4f}"
           f" (oracle {golden['oracle_mask_frac']:.4f}); detector_mask_scan "
           f"over 48 frames of 1920x1080: {golden['host_ms_per_frame']:.3f} "
-          f"ms/frame (host clock)")
+          f"ms/frame (host clock); launches {golden['launches']}")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

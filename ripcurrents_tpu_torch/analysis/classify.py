@@ -138,7 +138,8 @@ def android_local_rip(out: torch.Tensor, localwin: int = 20) -> torch.Tensor:
 
     def prefix(a, pad):
         return torch.cumsum(torch.cumsum(
-            torch.nn.functional.pad(a, (pad, 0, pad, 0)), dim=0), dim=1)
+            torch.nn.functional.pad(a, (pad, 0, pad, 0)), dim=0,
+            dtype=torch.int32), dim=1, dtype=torch.int32)
 
     winning = (_box_sums(prefix(hi, 1), ys, xs, win) > thresh) & \
         (_box_sums(prefix(lo, 1), ys, xs, win) > thresh)

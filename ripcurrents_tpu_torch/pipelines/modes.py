@@ -618,8 +618,7 @@ def phase_correlate_mode(cfg: ModeConfig, device="cuda"):
     undone by a bilinear translation. Every frame is resized with
     INTER_AREA (main.cpp:1736)."""
     dev = resolve_device(device)
-    rx, ry, rw, rh = cfg.phase_roi
-    win = hanning_window(rh, rw, dev)
+    win = hanning_window(cfg.phase_roi[3], cfg.phase_roi[2], dev)
 
     def init(first_raw):
         resized, _ = prep_frame(to_device(first_raw, dev), cfg, first=True)
@@ -627,15 +626,24 @@ def phase_correlate_mode(cfg: ModeConfig, device="cuda"):
 
     def step(state, raw):
         resized, _ = prep_frame(to_device(raw, dev), cfg, first=True)
-        pg = bgr_to_gray(state.prev_resized).to(torch.float32)
-        cg = bgr_to_gray(resized).to(torch.float32)
-        pc = phase_correlate(_crop(pg, ry, rx, rh, rw),
-                             _crop(cg, ry, rx, rh, rw), win)
-        corrected = translate(resized, -pc.shift[0], -pc.shift[1])
+        shift = phase_shift(state.prev_resized, resized, cfg.phase_roi, win)
+        corrected = translate(resized, -shift[0], -shift[1])
         return PhaseCorrelateState(corrected, state.framecount + 1), \
             corrected
 
     return init, step
+
+
+def phase_shift(prev_resized: torch.Tensor, resized: torch.Tensor, roi,
+                window: torch.Tensor) -> torch.Tensor:
+    """phaseCorrelate's (dx, dy): the translation of the ROI (x, y, w, h)
+    from the compensated previous frame to the new one, both (H, W, 3)
+    uint8 BGR. The mode undoes it with ``translate``."""
+    rx, ry, rw, rh = roi
+    pg = bgr_to_gray(prev_resized).to(torch.float32)
+    cg = bgr_to_gray(resized).to(torch.float32)
+    return phase_correlate(_crop(pg, ry, rx, rh, rw),
+                           _crop(cg, ry, rx, rh, rw), window).shift
 
 
 class GlobalOrientationState(NamedTuple):
