@@ -42,7 +42,10 @@ Every phase passes or raises (the script catches nothing):
    instance) and in its frame layout at every level of the tiled engine's
    640x480 pyramid, for C = 1 at 1080p (bres 2), C = 3 at 640x480 (bres
    6) and at a ragged 75x107 (``TILES_FRAME_CHECKS``), clamped residuals
-   included; one device kernel per K8 call in each layout;
+   included, at each of dense_lk's four 640x480 levels (C = 1, bres 4)
+   and at stabilizeTPU's 480x640 colour frame under a homography's
+   displacement (C = 3, bres 6; ``check_tiles_new_paths``); one device
+   kernel per K8 call in each layout;
 3. the legacy rip detector (``make_legacy``, 250 seeds) on 40 synthetic
    1280x720 moving-texture frames at 640x480: finite outputs of the right
    shapes, a live duty mask, K1 and K2 each launched 6 times, K4 twice and
@@ -103,7 +106,22 @@ Every phase passes or raises (the script catches nothing):
    against the cv2 oracle mask (``assets/detector_oracle_1080p_48f_v2
    .npz``): ``detector_1080p_iou`` (at least ``DETECTOR_IOU``), the
    mask share and the scan's K1/K2/K4/K5/K6 launches, which must equal
-   what the preset implies (``stream_launches``).
+   what the preset implies (``stream_launches``);
+11. ``stabilizeTPU`` through ``run_frames`` at 640x480 for both feature
+   engines (Harris, AKAZE) on 8 frames of a jittered textured clip
+   (``synthetic.make_jittered_clip``): host-clock ms per frame, device
+   time, kernels and busy share of 2 traced frames, K launches per frame
+   (K8 once, no other), and the residual jitter of the output against
+   the raw clip's, measured with the port's ``phase_correlate`` on the
+   interior (below ``STAB_RESIDUAL`` x raw); then each engine at 192x256
+   on the card against the CPU with the CPU's RANSAC noise injected,
+   step by step from the CPU's states and chained (``STAB_*`` limits);
+12. the CLI's ``benchmark`` work on one 640x480 pair: ``farneback``
+   (``BENCH_FB``) and ``dense_lk`` (``LKParams.dense_grid()``), each a
+   warm and a timed call ended by a device sync, dense_lk's K8 launches
+   (30 a level, 120) and one traced call; dense_lk at 192x256 on the card
+   against the CPU (``DENSE_LK_*`` limits); ``farneback_stream_lagged``
+   against ``farneback_stream`` on the card over 4 flows, equal.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -126,6 +144,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -137,12 +156,15 @@ from ripcurrents_tpu_torch.config import (ANDROID_OVERLAY_WARMUP,
                                           FarnebackParams, LKParams)
 from ripcurrents_tpu_torch.dynamics.particles import timeline_init
 from ripcurrents_tpu_torch.flow import farneback as fb
+from ripcurrents_tpu_torch.flow import feature_stab
 from ripcurrents_tpu_torch.flow import fused_update as fu
 from ripcurrents_tpu_torch.flow import lucas_kanade as lk
 from ripcurrents_tpu_torch.flow import prep_kernel, warp_kernel
 from ripcurrents_tpu_torch.flow.lk_kernel import (PATCH_MARGIN, lk_track,
                                                   lk_track_plain)
-from ripcurrents_tpu_torch.flow.phasecorr import hanning_window
+from ripcurrents_tpu_torch.flow.dense_lk import dense_lk
+from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
+                                                  phase_correlate)
 from ripcurrents_tpu_torch.ops import image as img_ops
 from ripcurrents_tpu_torch.ops.warp import translate
 from ripcurrents_tpu_torch.pipelines import modes, runner
@@ -150,7 +172,8 @@ from ripcurrents_tpu_torch.pipelines.common import (MODES, ModeConfig,
                                                     detector_mask_scan,
                                                     prep_frame)
 from ripcurrents_tpu_torch.pipelines.legacy import make_legacy
-from ripcurrents_tpu_torch.synthetic import make_rip_clip, moving_frames
+from ripcurrents_tpu_torch.synthetic import (make_jittered_clip,
+                                             make_rip_clip, moving_frames)
 from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
                                                 reset_launches)
 
@@ -815,27 +838,105 @@ def check_tiles(device):
     for i, (name, (h, w, c, (th, tw), bres)) in enumerate(
             {**frames, **TILES_FRAME_CHECKS}.items()):
         table, flow = frame_tiles_inputs(h, w, c, bres, device, seed=i)
-        got = warp_kernel.warp_tiles(table, flow, None, th, tw, bres)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        plain = warp_kernel.warp_tiles_plain(table, flow, None, th, tw, bres)
-        counts = warp_kernel.frame_counts(h, w, th, tw, device)
-        bases = warp_kernel.tile_bases_plain(flow.permute(2, 0, 1), counts,
-                                             th, tw, warp_kernel.MAX_BASE,
-                                             warp_kernel.MAX_BASE)
-        full = bases.repeat_interleave(th, 1).repeat_interleave(tw, 2)
-        resid = flow.permute(2, 0, 1) - full[:, :h, :w]
-        res = {"channels": c, "tile": (th, tw), "bres": bres,
-               "max": (got - plain).abs().max().item(),
-               "base_abs_max": bases.abs().max().item(),
-               "residual_clamped_share":
-                   (resid.abs() > bres).any(0).float().mean().item()}
-        if res["max"] > TILES_TOL or res["base_abs_max"] < 2 or \
-                not 0.0 < res["residual_clamped_share"] < 1.0 or \
-                got.shape != (h, w, c):
-            raise AssertionError(f"K8 frame layout, {name}: {res}")
-        out[f"frame {name} C{c} bres {bres}"] = res
+        out[f"frame {name} C{c} bres {bres}"] = check_frame_tiles(
+            name, table, flow, th, tw, bres)
     return out
+
+
+def check_frame_tiles(name, table, flow, th, tw, bres, clamped=True):
+    """K8 in its frame layout against its plain version on (table, flow):
+    the deviation, the largest tile base and the share of pixels whose
+    residual is clamped. Raises past TILES_TOL, when no base reaches 2 px,
+    or (with `clamped`) when no residual or every residual is clamped."""
+    h, w, c = table.shape
+    got = warp_kernel.warp_tiles(table, flow, None, th, tw, bres)
+    if got.is_cuda:
+        torch.cuda.synchronize(got.device)
+    plain = warp_kernel.warp_tiles_plain(table, flow, None, th, tw, bres)
+    counts = warp_kernel.frame_counts(h, w, th, tw, flow.device)
+    bases = warp_kernel.tile_bases_plain(flow.permute(2, 0, 1), counts,
+                                         th, tw, warp_kernel.MAX_BASE,
+                                         warp_kernel.MAX_BASE)
+    full = bases.repeat_interleave(th, 1).repeat_interleave(tw, 2)
+    resid = flow.permute(2, 0, 1) - full[:, :h, :w]
+    res = {"channels": c, "tile": (th, tw), "bres": bres,
+           "max": (got - plain).abs().max().item(),
+           "base_abs_max": bases.abs().max().item(),
+           "residual_clamped_share":
+               (resid.abs() > bres).any(0).float().mean().item()}
+    if res["max"] > TILES_TOL or res["base_abs_max"] < 2 or \
+            (clamped and not 0.0 < res["residual_clamped_share"] < 1.0) or \
+            got.shape != (h, w, c):
+        raise AssertionError(f"K8 frame layout, {name}: {res}")
+    return res
+
+
+def dense_lk_shapes(h=480, w=640, p: LKParams = LKParams.dense_grid()):
+    """(lh, lw) of every level of dense_lk's pyramid at (h, w), finest
+    first (pyrDown halves rounding up)."""
+    shapes = [(h, w)]
+    for _ in range(lk.pyramid_levels((h, w), p)):
+        shapes.append(((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2))
+    return shapes
+
+
+def stab_homography(device, deg=1.0, shift=(3.0, 2.0), h=480, w=640):
+    """A rotation by `deg` about the frame's centre plus `shift` px, as a
+    (3, 3) float32 homography on `device`."""
+    a = np.deg2rad(deg)
+    cx, cy = w / 2, h / 2
+    m = np.float32([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                    [0, 0, 1]])
+    m[0, 2] = cx - m[0, 0] * cx - m[0, 1] * cy + shift[0]
+    m[1, 2] = cy - m[1, 0] * cx - m[1, 1] * cy + shift[1]
+    return torch.from_numpy(m).to(device)
+
+
+def check_tiles_new_paths(device):
+    """K8's frame layout at the new paths' geometries: dense_lk's four
+    levels at 640x480 (C = 1, bres 4, tile 64x256; ``frame_tiles_inputs``'
+    flows moved by (4, -3) px, so that the one tile of the 60x80 level has
+    a base too) and stabilizeTPU's 480x640 colour frame (C =
+    3, bres 6) warped by the displacement of a 1-degree rotation plus a
+    (3, 2) px shift (``feature_stab.homography_displacement``; no
+    residual reaches 6 px there). Bit for bit or raises."""
+    out = {}
+    for k, (lh, lw) in enumerate(dense_lk_shapes()):
+        table, flow = frame_tiles_inputs(lh, lw, 1, 4, device, seed=20 + k)
+        flow = (flow + torch.tensor([4.0, -3.0], device=device)).contiguous()
+        out[f"dense_lk L{k} {lh}x{lw} C1 bres 4"] = check_frame_tiles(
+            f"dense_lk L{k}", table, flow, 64, 256, 4)
+    frame = moving_frames(1, 480, 640, device, seed=30)[0]
+    disp = feature_stab.homography_displacement(stab_homography(device),
+                                                480, 640)
+    out["stabilizeTPU 480x640 C3 bres 6, homography"] = check_frame_tiles(
+        "stabilizeTPU", frame.to(torch.float32).contiguous(), disp, 64, 256,
+        6, clamped=False)
+    return out
+
+
+def device_events(fn, cpu=False, tries=3) -> list:
+    """The CUDA events of one torch.profiler session around fn(), which
+    ends in a device sync (with `cpu`, the session records host
+    activity too). A session that records no device event at all lost
+    its records (torch.profiler on the card does, now and then): it is
+    repeated, fn run again, at most tries - 1 times, and the script says
+    so; the last session's events are returned."""
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    if not torch.cuda.is_available():
+        tries = 1                           # no device events to wait for
+    for i in range(tries):
+        with profile(activities=acts) as prof:
+            fn()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        if i + 1 < tries:
+            print(f"    torch.profiler recorded no device event in a "
+                  f"session; profiling it again ({i + 2} of {tries})",
+                  flush=True)
+    return events
 
 
 def k8_kernels_per_call(device):
@@ -851,11 +952,8 @@ def k8_kernels_per_call(device):
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        out[name] = [e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[name] = [e.name for e in device_events(
+            lambda: (fn(), torch.cuda.synchronize()))]
     return out
 
 
@@ -869,15 +967,16 @@ def k8_kernels_per_frame(device, h=480, w=640):
         e0, e1, (h, w), TILED_PRESET)
     step()
     torch.cuda.synchronize()
-    before = warp_kernel.warp_tiles.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    before = [0]
+
+    def traced():
+        before[0] = warp_kernel.warp_tiles.launches
         step()
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and
-             ("warp_tiles" in e.name or "tile_sums" in e.name)]
+    names = [e.name for e in device_events(traced)
+             if "warp_tiles" in e.name or "tile_sums" in e.name]
     return {"device_kernels": len(names),
-            "calls": warp_kernel.warp_tiles.launches - before}
+            "calls": warp_kernel.warp_tiles.launches - before[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1014,15 +1113,16 @@ def stream_1080p_breakdown(device, frames=5, warm=2):
     for t in range(1, warm + 1):
         _, exp = fb.farneback_stream(exp, gray[t], p)
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def traced():
+        e = exp
         for t in range(warm + 1, warm + frames + 1):
-            _, exp = fb.farneback_stream(exp, gray[t], p)
+            _, e = fb.farneback_stream(e, gray[t], p)
         torch.cuda.synchronize(device)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for e in device_events(traced):
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     total = sum(us for us, _ in by_name.values())
 
     def of(kernel):
@@ -1371,12 +1471,8 @@ def run_simple_mode(device, mode, frames, cfg: ModeConfig = ModeConfig(),
     _sync(device)
     host_ms = (time.perf_counter() - t0) * 1e3 / (frames - warm)
     launches = launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, raw[frames + 1])
-        _sync(device)
-    n_kernels = sum(1 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    n_kernels = len(device_events(
+        lambda: (step(state, raw[frames + 1]), _sync(device)), cpu=True))
     out = outs[-1]
     if tuple(out.shape) != (cfg.ydim, cfg.xdim, 3) or \
             out.dtype != torch.uint8:
@@ -1543,6 +1639,347 @@ def detector_golden_1080p(device, frames=48):
     if not iou >= DETECTOR_IOU or launches != want:
         raise AssertionError(f"1080p detector golden (launches expected "
                              f"{want}): {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: stabilizeTPU
+# ---------------------------------------------------------------------------
+
+# The JAX test's bound on the stabilized clip's residual jitter
+# (tests/test_stabilize_vs_akaze.py): below 0.35 x the raw jitter.
+STAB_RESIDUAL = 0.35
+STAB_MARGIN = 48            # interior the jitter is measured on, px
+STAB_FRAMES = 8
+# stabilizeTPU at 192x256 on the card vs on the CPU, the CPU's RANSAC
+# noise injected. Each step from the CPU's state before it: the four
+# frame corners under the two homographies within STAB_H_PX (set from
+# the port against JAX on the CPU, which is 5.2e-5 px for an AKAZE step,
+# x ~200), inlier counts within STAB_INLIERS of each other, >=
+# STAB_PIXEL_SHARE of the corrected pixels equal and at most
+# STAB_JUMP_SHARE more than one level apart (a sample crossing the
+# frame's edge between the two H; a row and a column are 0.9% of
+# 192x256). The chained 3 steps compound the SVDs' last digits (the
+# port against JAX: 0.018 px of shift by step 3 with AKAZE): H within
+# STAB_CHAIN_H_PX. Readings on an H100 (700 W): forced steps H <= 1.7e-4
+# px, inliers equal, >= 99.97% of pixels equal, none two levels apart;
+# chained H <= 1.3e-3 px (AKAZE step 3), >= 99.76% equal.
+STAB_H_PX = 0.01
+STAB_INLIERS = 0.02
+STAB_PIXEL_SHARE = 0.99
+STAB_JUMP_SHARE = 0.01
+STAB_CHAIN_H_PX = 0.05
+
+
+def stab_clip(frames, h=480, w=640, seed=0):
+    """``synthetic.make_jittered_clip`` with frames + 1 frames at (h, w),
+    its blob count scaled from the JAX test's 150 at 240x320."""
+    return make_jittered_clip(np.random.default_rng(seed), h, w, frames + 1,
+                              blobs=round(150 * h * w / (240 * 320)))
+
+
+def residual_jitter(frames, device, margin=STAB_MARGIN) -> float:
+    """Mean |phase-correlation shift| (px) between consecutive frames of
+    (T, H, W, 3) uint8 BGR frames, on their gray interiors (`margin` px
+    in from each edge, Hann window), with the port's
+    ``flow/phasecorr.phase_correlate``."""
+    t = (frames if torch.is_tensor(frames) else
+         torch.from_numpy(np.asarray(frames))).to(device)
+    h, w = t.shape[1:3]
+    g = img_ops.bgr_to_gray(t)[:, margin:h - margin,
+                               margin:w - margin].to(torch.float32)
+    win = hanning_window(h - 2 * margin, w - 2 * margin, device)
+    shifts = [torch.linalg.vector_norm(phase_correlate(g[i - 1], g[i],
+                                                       win).shift)
+              for i in range(1, g.shape[0])]
+    return torch.stack(shifts).mean().item()
+
+
+def top_kernels(kern, per, n=5):
+    """The n device kernels of a trace's CUDA events `kern` that take the
+    most time: [(name, us per `per`, launches per `per`)]."""
+    by = {}
+    for e in kern:
+        t, c = by.get(e.name, (0.0, 0))
+        by[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k[:60], round(t / per, 2), c / per) for k, (t, c) in top]
+
+
+def host_syncs(fn) -> list:
+    """The operations that made the host wait for the card during fn():
+    torch's sync debug mode's warnings, one message each (empty off the
+    card)."""
+    if not torch.cuda.is_available():
+        fn()
+        return []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message).split("\n")[0][:80] for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def run_stabilize(device, features, frames=STAB_FRAMES, traced=2,
+                  hw=(480, 640)):
+    """stabilizeTPU at `hw` (640x480) through ``run_frames`` on a
+    jittered clip (``stab_clip``), every launch counter set to 0 just
+    before; then
+    `traced` more steps under torch.profiler. Returns host ms per frame,
+    launches per frame, device ms and kernels per traced frame, the
+    device's busy share (traced device time / untraced host time) and the
+    raw and output residual jitter; raises unless K8 runs once a frame
+    and no other K kernel runs, or on a residual of STAB_RESIDUAL x the
+    raw jitter or more."""
+    clip, _ = stab_clip(frames + traced + 1, *hw)
+    cfg = ModeConfig(xdim=hw[1], ydim=hw[0], stab_features=features)
+    list(runner.run_frames("stabilizeTPU", clip[:3], cfg, device))
+    _sync(device)
+    reset_launches()
+    stats = runner.RunStats()
+    outs = list(runner.run_frames("stabilizeTPU", clip[:frames + 1], cfg,
+                                  device, stats))
+    launches = {k: v / frames for k, v in launch_counts().items()}
+    host_ms = stats.seconds * 1e3 / stats.frames
+    init, step = MODES["stabilizeTPU"](cfg, device=device)
+    state = init(clip[frames])
+    _sync(device)
+
+    def steps():
+        st = state
+        for t in range(frames + 1, frames + traced + 1):
+            st, _ = step(st, clip[t])
+        _sync(device)
+    kern = device_events(steps, cpu=True)
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / traced
+    syncs = host_syncs(lambda: step(state, clip[frames + traced]))
+    out = torch.stack(outs)
+    res = {"host_ms_per_frame": host_ms, "launches_per_frame": launches,
+           "device_ms_per_frame": dev_ms,
+           "device_kernels_per_frame": len(kern) / traced,
+           "busy_share": dev_ms / host_ms,
+           "host_syncs_per_frame": len(syncs), "syncs": sorted(set(syncs)),
+           "top_kernels_us_per_frame": top_kernels(kern, traced),
+           "raw_jitter_px": residual_jitter(clip[:frames + 1], device),
+           "output_jitter_px": residual_jitter(
+               torch.cat([torch.as_tensor(clip[:1]).to(device), out]),
+               device)}
+    want = dict.fromkeys(launches, 0.0)
+    if device.type == "cuda":
+        want["K8"] = 1.0
+    if launches != want or out.dtype != torch.uint8 or \
+            tuple(out.shape[1:]) != (cfg.ydim, cfg.xdim, 3) or \
+            not res["output_jitter_px"] < STAB_RESIDUAL * \
+            res["raw_jitter_px"]:
+        raise AssertionError(f"stabilizeTPU ({features}): launches per "
+                             f"frame expected {want}; {res}")
+    return res
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    real = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def _corner_px(h_a, h_b, h, w) -> float:
+    """Largest distance (px) between the images of the frame's four
+    corners under two homographies."""
+    c = np.float64([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]])
+    pa = c @ np.float64(h_a).T
+    pb = c @ np.float64(h_b).T
+    return float(np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max())
+
+
+def compare_stabilize_small(device, features, n=3):
+    """stabilizeTPU at 192x256 on `device` against the CPU over n frames
+    of a jittered clip, the CPU's RANSAC noise injected into the card's
+    steps (``feature_stab.gumbel_noise``): each step from the CPU's state
+    before it, and the n steps chained on each side. Per step: the
+    frame-corner distance between the two H, both inlier counts, the
+    share of equal pixels and of pixels more than one level apart.
+    Raises past the STAB_* limits."""
+    cfg = ModeConfig(xdim=256, ydim=192, stab_features=features)
+    clip, _ = stab_clip(n, 192, 256, seed=7)
+    cpu = torch.device("cpu")
+    noises, pairs, feed = [], [], []
+    real_noise, real_pair = feature_stab.gumbel_noise, modes.stabilize_pair
+
+    def rec_noise(g, t, k, d):
+        z = real_noise(g, t, k, d)
+        noises.append(z.cpu())
+        return z
+
+    def rec_pair(*a, **kw):
+        out = real_pair(*a, **kw)
+        pairs.append((out[1].cpu().numpy(), int(out[2])))
+        return out
+
+    with _patched(feature_stab, "gumbel_noise", rec_noise), \
+            _patched(modes, "stabilize_pair", rec_pair):
+        init, step = MODES["stabilizeTPU"](cfg, device=cpu)
+        states, outs = [init(clip[0])], []
+        for t in range(1, n + 1):
+            st, o = step(states[-1], clip[t])
+            states.append(st)
+            outs.append(o)
+    want = list(pairs)
+    runs = {}
+    with _patched(feature_stab, "gumbel_noise",
+                  lambda g, t, k, d: feed.pop(0)), \
+            _patched(modes, "stabilize_pair", rec_pair):
+        init, step = MODES["stabilizeTPU"](cfg, device=device)
+        pairs.clear()
+        got = []
+        for t in range(1, n + 1):
+            feed[:] = [noises[t - 1].to(device)]
+            st = modes.StabilizeState(states[t - 1].prev_gray.to(device),
+                                      states[t - 1].framecount.to(device))
+            got.append(step(st, clip[t])[1].cpu())
+        runs["forced"] = (got, list(pairs))
+        pairs.clear()
+        feed[:] = [z.to(device) for z in noises]
+        st, got = init(clip[0]), []
+        for t in range(1, n + 1):
+            st, o = step(st, clip[t])
+            got.append(o.cpu())
+        runs["chained"] = (got, list(pairs))
+    res = {}
+    for name, (got, got_pairs) in runs.items():
+        rows = []
+        for o, oc, (hg, ng), (hc, nc) in zip(got, outs, got_pairs, want):
+            d = (o.int() - oc.int()).abs().amax(-1)
+            rows.append({"h_px": _corner_px(hg, hc, 192, 256),
+                         "inliers": (ng, nc),
+                         "equal": (d == 0).float().mean().item(),
+                         "jump": (d > 1).float().mean().item()})
+        res[name] = rows
+    bad = [r for r in res["forced"]
+           if r["h_px"] > STAB_H_PX or r["equal"] < STAB_PIXEL_SHARE or
+           r["jump"] > STAB_JUMP_SHARE or r["inliers"][1] < 8 or
+           abs(r["inliers"][0] - r["inliers"][1]) >
+           STAB_INLIERS * r["inliers"][1]]
+    bad += [r for r in res["chained"] if r["h_px"] > STAB_CHAIN_H_PX]
+    if bad:
+        raise AssertionError(f"stabilizeTPU ({features}) on {device} vs "
+                             f"CPU: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the benchmark mode's work (dense LK against Farneback)
+# ---------------------------------------------------------------------------
+
+# The CLI's benchmark preset (JAX cli.py:283: main.cpp's streamlines
+# call, the fused engine).
+BENCH_FB = FarnebackParams(0.5, 2, 3, 2, 15, 1.2, True)
+# dense_lk on the card vs on the CPU at 192x256: the banded window sums
+# are matrix products summed in cuBLAS's order and the CPU's, and a pixel
+# on the edge of a stopping rule (|delta|^2 <= eps^2, the oscillation
+# test) can stop one iteration apart, a step of up to ~eps (0.01 px).
+# Limits chosen before the first reading: max DENSE_LK_MAX_PX, median
+# DENSE_LK_MEDIAN_PX, status equal on >= DENSE_LK_STATUS of pixels. The
+# reading on an H100 (700 W): max 1.3e-6 px, median 2.4e-7 px, status
+# equal everywhere.
+DENSE_LK_MAX_PX = 0.05
+DENSE_LK_MEDIAN_PX = 1e-4
+DENSE_LK_STATUS = 0.999
+
+
+def benchmark_work(device):
+    """The CLI's benchmark mode's work (JAX cli.py:263-300) on one 640x480
+    frame pair made from 1280x720 moving-texture frames: ``farneback``
+    with BENCH_FB and ``dense_lk`` with ``LKParams.dense_grid()``, each a
+    warm call and then a timed call ended by a device sync, every launch
+    counter set to 0 just before the timed call; then one traced
+    dense_lk call (device ms, kernels, busy share). Raises unless the
+    timed dense_lk launched K8 30 times a level (120) and no other K
+    kernel, and Farneback none of K3, K7, K8."""
+    raw = moving_frames(2, RAW_H, RAW_W, device)
+    cfg = ModeConfig()
+    _, g1 = prep_frame(raw[0], cfg, first=True)
+    _, g2 = prep_frame(raw[1], cfg)
+    p = LKParams.dense_grid()
+    calls = {"farneback": lambda: fb.farneback(g2, g1, BENCH_FB),
+             "dense_lk": lambda: dense_lk(g1, g2, p)}
+    res = {}
+    for name, fn in calls.items():
+        fn()
+        _sync(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        res[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": launch_counts()}
+    flow, status = out
+    kern = device_events(lambda: (calls["dense_lk"](), _sync(device)),
+                         cpu=True)
+    dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    lk_res = res["dense_lk"]
+    lk_res.update(device_ms=dev_ms, device_kernels=len(kern),
+                  busy_share=dev_ms / lk_res["ms"],
+                  host_syncs=len(host_syncs(calls["dense_lk"])),
+                  top_kernels_us=top_kernels(kern, 1),
+                  status_share=status.float().mean().item(),
+                  mean_flow=flow[status].mean(0).tolist())
+    levels = len(dense_lk_shapes(480, 640, p))
+    want = dict.fromkeys(lk_res["launches"], 0)
+    if device.type == "cuda":
+        want["K8"] = p.max_iters * levels
+    fb_n = res["farneback"]["launches"]
+    if lk_res["launches"] != want or fb_n["K3"] or fb_n["K7"] or \
+            fb_n["K8"] or not torch.isfinite(flow).all() or \
+            lk_res["status_share"] < 0.5:
+        raise AssertionError(f"benchmark work (dense_lk launches expected "
+                             f"{want}): {res}")
+    return res
+
+
+def compare_dense_lk_small(device):
+    """dense_lk at 192x256 (4 levels) on `device` against the CPU on the
+    same frames: max and median |d| px of the flow, status agreement;
+    raises past the DENSE_LK_* limits."""
+    g = moving_frames(2, 192, 256, torch.device("cpu"), color=False)
+    p = LKParams.dense_grid()
+    fc, sc = dense_lk(g[0], g[1], p)
+    fg, sg = dense_lk(g[0].to(device), g[1].to(device), p)
+    d = (fg.cpu() - fc).abs().amax(-1)
+    res = {"max_px": d.max().item(), "median_px": d.median().item(),
+           "status_equal": (sg.cpu() == sc).float().mean().item(),
+           "status_share": sc.float().mean().item()}
+    if res["max_px"] > DENSE_LK_MAX_PX or \
+            res["median_px"] > DENSE_LK_MEDIAN_PX or \
+            res["status_equal"] < DENSE_LK_STATUS:
+        raise AssertionError(f"dense_lk on {device} vs CPU: {res}")
+    return res
+
+
+def check_lagged(device, flows=4):
+    """``farneback_stream_lagged`` against ``farneback_stream`` on
+    `device` (BENCH_FB, 640x480 moving texture) over `flows` flows: the
+    same flows, value for value, or raises."""
+    f = moving_frames(flows + 2, 480, 640, device, color=False)
+    carry = (fb.farneback_precompute(f[0], BENCH_FB),
+             fb.farneback_precompute(f[1], BENCH_FB))
+    exp = carry[0]
+    out = []
+    for i in range(2, flows + 2):
+        lag, carry = fb.farneback_stream_lagged(carry, f[i], BENCH_FB)
+        ref, exp = fb.farneback_stream(exp, f[i - 1], BENCH_FB)
+        out.append((lag - ref).abs().max().item())
+    if any(out):
+        raise AssertionError(f"farneback_stream_lagged on {device}: max "
+                             f"|d| per flow {out}")
     return out
 
 
@@ -1880,6 +2317,38 @@ def k8_levels(device, reps=50):
         halo[f"bres{bres}_sw{g['sw']}"]["bound_us"] = k8_bytes(
             (g["hp"], g["wp"]), 5, 2) / HBM_BYTES_PER_S * 1e6
     return {"levels": rows, "frame": frame, "halo_1080p": halo}
+
+
+def k8_new_paths(device, reps=50):
+    """K8's device time per call (``call_ms``) at the new paths'
+    geometries of ``check_tiles_new_paths``: each of dense_lk's four
+    640x480 levels (C = 1, bres 4) and stabilizeTPU's 480x640 colour
+    frame (C = 3, bres 6), with the bound; per dense_lk call (each level
+    x 30 iterations) and per stabilizeTPU frame (one call)."""
+    rows = []
+    for k, hw in enumerate(dense_lk_shapes()):
+        table, flow = frame_tiles_inputs(*hw, 1, 4, device, seed=20 + k)
+        ms, _ = call_ms(lambda: warp_kernel.warp_tiles(
+            table, flow, None, 64, 256, 4), reps)
+        rows.append({"path": f"dense_lk L{k}", "hw": hw, "channels": 1,
+                     "us": ms * 1e3,
+                     "bound_us": k8_bytes(hw, 1) / HBM_BYTES_PER_S * 1e6})
+    frame = moving_frames(1, 480, 640, device, seed=30)[0]
+    table = frame.to(torch.float32).contiguous()
+    disp = feature_stab.homography_displacement(stab_homography(device),
+                                                480, 640)
+    ms, _ = call_ms(lambda: warp_kernel.warp_tiles(table, disp, None, 64,
+                                                   256, 6), reps)
+    rows.append({"path": "stabilizeTPU", "hw": (480, 640), "channels": 3,
+                 "us": ms * 1e3,
+                 "bound_us": k8_bytes((480, 640), 3) / HBM_BYTES_PER_S * 1e6})
+    it = LKParams.dense_grid().max_iters
+    lk_rows = rows[:-1]
+    return {"levels": rows,
+            "dense_lk_call": {key: it * sum(r[key] for r in lk_rows)
+                              for key in ("us", "bound_us")},
+            "stabilize_frame": {key: rows[-1][key]
+                                for key in ("us", "bound_us")}}
 
 
 def compare_parent(parent: str, rounds=2):
@@ -2247,6 +2716,9 @@ def main() -> int:
     devs["k8_max"] = max(r["max"] for r in k8_devs.values())
     for name, r in k8_devs.items():
         print(f"[2] K8 {name}: {r}")
+    for name, r in check_tiles_new_paths(dev).items():
+        devs["k8_max"] = max(devs["k8_max"], r["max"])
+        print(f"[2] K8 {name}: {r}")
     per_call = k8_kernels_per_call(dev)
     print(f"[2] K8 device kernels per call: {per_call}")
     if any(len(v) != 1 for v in per_call.values()):
@@ -2356,6 +2828,7 @@ def main() -> int:
     want = dict(want, K7=0, K8=9 * n)
     if t_n != want:
         raise AssertionError(f"tiled warp: expected launches {want}")
+    tiled_k8 = t_n["K8"] / n
     k8_frame = k8_kernels_per_frame(dev)
     print(f"[7] K8 in one traced 640x480 frame of the tiled engine: "
           f"{k8_frame['device_kernels']} device kernels, "
@@ -2435,6 +2908,18 @@ def main() -> int:
           f"us on the device, {k8['frame']['kernels']} kernels (bound "
           f"{k8['frame']['bound_us']:.2f} us); 1080p halo (A, floor Z, "
           f"bound, us): {k8['halo_1080p']}")
+    k8_new = k8_new_paths(dev)
+    for r in k8_new["levels"]:
+        print(f"[5] K8 {r['path']} {r['hw'][0]}x{r['hw'][1]} C{r['channels']}"
+              f": {r['us']:.2f} us/call on the device, bound "
+              f"{r['bound_us']:.2f} us (bytes)")
+    print(f"[5] K8 per dense_lk 640x480 call (120 calls): "
+          f"{k8_new['dense_lk_call']['us']:.2f} us on the device (bound "
+          f"{k8_new['dense_lk_call']['bound_us']:.2f}); per stabilizeTPU "
+          f"frame: {k8_new['stabilize_frame']['us']:.2f} us (bound "
+          f"{k8_new['stabilize_frame']['bound_us']:.2f})")
+    rows[-1]["new_paths_us"] = {"dense_lk_call": k8_new["dense_lk_call"],
+                                "stabilize_frame": k8_new["stabilize_frame"]}
     k7_gs = k7_against_grid_sample(dev)
     print(f"[5] K7 and grid_sample at 640x480, budget 16, alternated "
           f"(median us of 50 launches per turn): {k7_gs}")
@@ -2503,6 +2988,48 @@ def main() -> int:
           f" (oracle {golden['oracle_mask_frac']:.4f}); detector_mask_scan "
           f"over 48 frames of 1920x1080: {golden['host_ms_per_frame']:.3f} "
           f"ms/frame (host clock); launches {golden['launches']}")
+    stab_k8 = {}
+    for features in ("harris", "akaze"):
+        r = run_stabilize(dev, features)
+        stab_k8[features] = r["launches_per_frame"]["K8"]
+        print(f"[11] stabilizeTPU ({features}) 640x480, {STAB_FRAMES} frames "
+              f"of a jittered clip through run_frames: "
+              f"{r['host_ms_per_frame']:.3f} ms/frame (host clock); "
+              f"{r['device_ms_per_frame']:.3f} ms/frame of device kernels, "
+              f"{r['device_kernels_per_frame']:.0f} device kernels per "
+              f"frame (traced), busy share {100 * r['busy_share']:.1f}%; "
+              f"launches per frame {r['launches_per_frame']}; host syncs "
+              f"per frame {r['host_syncs_per_frame']} ({r['syncs']}); "
+              f"top kernels (us/frame) {r['top_kernels_us_per_frame']}; "
+              f"residual jitter {r['output_jitter_px']:.4f} px against the "
+              f"raw {r['raw_jitter_px']:.4f} px (limit {STAB_RESIDUAL} x "
+              f"raw)")
+        print(f"[11] stabilizeTPU ({features}) 192x256 on the card vs on "
+              f"the CPU, the CPU's RANSAC noise injected (per step: H's "
+              f"frame-corner distance px, inliers card / CPU, equal pixel "
+              f"share, share more than one level apart): "
+              f"{compare_stabilize_small(dev, features)}")
+    work = benchmark_work(dev)
+    lkw = work["dense_lk"]
+    print(f"[12] benchmark work, one 640x480 pair: farneback "
+          f"{work['farneback']['ms']:.2f} ms (launches "
+          f"{work['farneback']['launches']}); dense_lk (dense grid, "
+          f"{480 * 640} points) {lkw['ms']:.2f} ms, launches "
+          f"{lkw['launches']}; traced: {lkw['device_ms']:.3f} ms of device "
+          f"kernels, {lkw['device_kernels']} device kernels, busy share "
+          f"{100 * lkw['busy_share']:.1f}%, host syncs "
+          f"{lkw['host_syncs']}, top kernels (us) {lkw['top_kernels_us']}; "
+          f"status share "
+          f"{lkw['status_share']:.4f}, mean flow {lkw['mean_flow']}")
+    print(f"[12] dense_lk 192x256 on the card vs on the CPU: "
+          f"{compare_dense_lk_small(dev)}")
+    print(f"[12] farneback_stream_lagged vs farneback_stream on the card, "
+          f"640x480, 4 flows (max |d| each): {check_lagged(dev)}")
+    rows[-1]["launches_by_path"] = {
+        "tiled engine per 640x480 frame": tiled_k8,
+        "stabilizeTPU per frame (harris, akaze)": [stab_k8["harris"],
+                                                   stab_k8["akaze"]],
+        "dense_lk per 640x480 call": lkw["launches"]["K8"]}
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

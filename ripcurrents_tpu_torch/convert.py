@@ -32,6 +32,7 @@ from ripcurrents_tpu_torch.pipelines.modes import (AverageVectorModeState,
                                                    PopulationMapState,
                                                    RedPointsState,
                                                    ShearState,
+                                                   StabilizeState,
                                                    StreaklinesState,
                                                    SubtractAverageState,
                                                    TimelinesState,
@@ -211,6 +212,14 @@ def global_orientation_state_from_numpy(
     state."""
     return GlobalOrientationState(*(tensor_from_numpy(a, device)
                                     for a in state))
+
+
+def stabilize_state_from_numpy(state, device="cpu") -> StabilizeState:
+    """A JAX ``stabilizeTPU`` state mapped to numpy -> the port's state:
+    ``prev_gray`` and ``framecount``. JAX's PRNG key has no counterpart:
+    the port's step seeds its generator from (cfg.seed, framecount)."""
+    return StabilizeState(tensor_from_numpy(state.prev_gray, device),
+                          tensor_from_numpy(state.framecount, device))
 
 
 def state_to_numpy(state) -> dict:

@@ -21,8 +21,9 @@ Port of ``ripcurrents_tpu/flow/farneback.py``:
 - ``poly_impl="shifted"``: the expansion as the reference sequences it
   (reflect-101 Gaussian pre-smooth, pyramid resize, then the expansion
   correlations as shifted slice sums), float32 plain PyTorch;
-- the stream entry points: ``farneback_stream`` and its chunked and
-  multi-stream forms, which loop over the single-stream engine.
+- the stream entry points: ``farneback_stream``, its one-frame-lagged,
+  chunked and multi-stream forms, which loop over the single-stream
+  engine.
 
 Conventions: images are (H, W) (uint8 or float), flow is (H, W, 2) with
 channel 0 = dx (columns) and channel 1 = dy (rows), as OpenCV.
@@ -693,6 +694,24 @@ def farneback_stream(prev_exp, nxt: torch.Tensor, p: FarnebackParams,
     flow = farneback_from_expansions(prev_exp, nxt_exp, tuple(nxt.shape), p,
                                      init_flow, channels_first)
     return flow, nxt_exp
+
+
+def farneback_stream_lagged(carry, frame: torch.Tensor, p: FarnebackParams,
+                            channels_first: bool = False):
+    """One-frame-lagged streaming step: carry = (expansions of frame t-1,
+    expansions of frame t); feeding frame t+1 returns flow(t-1 -> t) and
+    the carry advanced to (e_t, e_{t+1}). Start the carry with
+    ``(farneback_precompute(f0, p), farneback_precompute(f1, p))``.
+
+    On the TPU the lag lets the level kernel host the next frame's prep in
+    idle matrix-unit cycles. That has no counterpart here: frame t+1 is
+    expanded by the prep kernels (K5/K6 on the fused engine) as
+    ``farneback_stream`` expands it, so each flow equals the
+    ``farneback_stream`` flow of the same pair."""
+    e_a, e_b = carry
+    flow = farneback_from_expansions(e_a, e_b, tuple(frame.shape), p, None,
+                                     channels_first)
+    return flow, (e_b, farneback_precompute(frame, p))
 
 
 def farneback_stream_chunk(prev_exp, frames: torch.Tensor,

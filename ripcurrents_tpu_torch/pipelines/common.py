@@ -52,6 +52,11 @@ class ModeConfig:
     # Optional Farneback warp override applied on top of each mode's
     # call-site preset (None = keep the preset's choice).
     warp_impl: "str | None" = None
+    # stabilizeTPU's feature engine: 'harris' (corners + patch
+    # descriptors) or 'akaze' (nonlinear-scale-space det-Hessian keypoints
+    # + rotated binary descriptors, flow/akaze_tpu.py; the reference's
+    # detector family, main.cpp:1598).
+    stab_features: str = "harris"
 
 
 def fb_preset(preset: FarnebackParams, cfg: ModeConfig) -> FarnebackParams:

@@ -4,7 +4,7 @@
 ``subtructAverageVector``, ``subtructAverageVectorWithWindow``,
 ``shearRate`` and ``averageVector``) and the temporal exposure and
 stabilization modes (``averageHSV``, ``timex``, ``brightColor``,
-``phaseCorrelate`` and ``globalOrientation``) of
+``phaseCorrelate``, ``stabilizeTPU`` and ``globalOrientation``) of
 ``ripcurrents_tpu/pipelines/modes.py``.
 
 One entry per compute_* function of the reference (RipCurrents_main/
@@ -30,6 +30,9 @@ from ripcurrents_tpu_torch.analysis.shear import shear_to_color
 from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
 from ripcurrents_tpu_torch.dynamics import advect
 from ripcurrents_tpu_torch.dynamics import particles as parts
+from ripcurrents_tpu_torch.flow.feature_stab import (FEATURES,
+                                                     stabilize_pair,
+                                                     step_generator)
 from ripcurrents_tpu_torch.flow.lucas_kanade import pyr_lk
 from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
                                                   phase_correlate)
@@ -644,6 +647,46 @@ def phase_shift(prev_resized: torch.Tensor, resized: torch.Tensor, roi,
     cg = bgr_to_gray(resized).to(torch.float32)
     return phase_correlate(_crop(pg, ry, rx, rh, rw),
                            _crop(cg, ry, rx, rh, rw), window).shift
+
+
+class StabilizeState(NamedTuple):
+    prev_gray: torch.Tensor     # gray of the previous corrected frame
+    framecount: torch.Tensor
+
+
+@register("stabilizeTPU")
+def stabilize_tpu(cfg: ModeConfig, device="cuda"):
+    """Feature stabilization on the device (flow/feature_stab.py): Harris
+    corners and patch matching (default) or the AKAZE-class engine
+    (``stab_features="akaze"``, flow/akaze_tpu.py), a RANSAC homography
+    and the tiled-warp correction; the on-device counterpart of the
+    reference's AKAZE pipeline (main.cpp:1556-1682). As the reference
+    does, each frame is registered to the previous *corrected* frame
+    (main.cpp:1659: prev = correction).
+
+    RANSAC draws from a generator on the device seeded from (cfg.seed,
+    framecount) (``feature_stab.step_generator``), so a step is a
+    function of its state and frame. Unlike the other modes' steps, this
+    one waits on the card: reading the count waits for the previous
+    step, and each of RANSAC's two SVD calls waits twice."""
+    dev = resolve_device(device)
+    if cfg.stab_features not in FEATURES:
+        raise ValueError(f"stab_features {cfg.stab_features!r}: expected "
+                         f"one of {FEATURES}")
+
+    def init(first_raw):
+        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        return StabilizeState(gray, _frame_zero(dev))
+
+    def step(state, raw):
+        resized, gray = prep_frame(to_device(raw, dev), cfg)
+        gen = step_generator(cfg.seed, int(state.framecount), dev)
+        corrected, _, _ = stabilize_pair(state.prev_gray, gray, resized, gen,
+                                         features=cfg.stab_features)
+        return StabilizeState(bgr_to_gray(corrected),
+                              state.framecount + 1), corrected
+
+    return init, step
 
 
 class GlobalOrientationState(NamedTuple):

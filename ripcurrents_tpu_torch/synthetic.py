@@ -1,6 +1,7 @@
 """Synthetic frames made from a seed, for runs on the card
-(chip_smoke.py, trace_legacy.py): beach-like moving texture, and the
-1080p rip clip of the detector golden."""
+(chip_smoke.py, trace_legacy.py): beach-like moving texture, the 1080p
+rip clip of the detector golden, and a jittered clip for the
+stabilization mode."""
 
 from __future__ import annotations
 
@@ -60,3 +61,64 @@ def make_rip_clip(t_frames: int) -> np.ndarray:
         g = np.clip(base * 0.5 + wave * damp + 80, 0, 255)
         frames.append(np.stack([g, g, g], -1).astype(np.uint8))
     return np.stack(frames)
+
+
+def _gaussian_blur_reflect101(img: np.ndarray, sigma: float) -> np.ndarray:
+    """cv2.GaussianBlur(img, (0, 0), sigma) on float32 (kernel size
+    round(8 sigma + 1) | 1, reflect-101 border), separable, in numpy."""
+    ksize = int(np.floor(sigma * 8 + 1 + 0.5)) | 1
+    x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2
+    k = np.exp(-(x * x) / (2 * sigma * sigma))
+    k /= k.sum()
+    r = ksize // 2
+    out = img.astype(np.float64)
+    for ax in (0, 1):
+        pad = [(0, 0), (0, 0)]
+        pad[ax] = (r, r)
+        p = np.pad(out, pad, mode="reflect")
+        n = out.shape[ax]
+        out = sum(k[i] * np.take(p, np.arange(i, i + n), axis=ax)
+                  for i in range(ksize))
+    return out.astype(np.float32)
+
+
+def make_jittered_clip(rng: np.random.Generator, h: int = 240,
+                       w: int = 320, t: int = 8, blobs: int = 150):
+    """A textured scene translated by known per-frame jitter (+-4 px;
+    frame 0 unjittered): a numpy-only copy of
+    ``tests/test_stabilize_vs_akaze.py: make_jittered_clip``. Blurred
+    uniform noise (sigma 1.2) on an (h + 64, w + 64) canvas with `blobs`
+    filled discs (radius 2-4) so AKAZE finds keypoints; frame k samples
+    it bilinearly at (x - 32 - jx, y - 32 - jy), 0 outside, as
+    cv2.warpAffine with the translation (32 + jx, 32 + jy) does.
+    -> ((t, h, w, 3) uint8, gray in all three channels; jitter (t, 2)
+    float32, (dx, dy))."""
+    big = rng.uniform(0, 255, (h + 64, w + 64)).astype(np.float32)
+    big = _gaussian_blur_reflect101(big, 1.2)
+    yy, xx = np.mgrid[0:h + 64, 0:w + 64]
+    for _ in range(blobs):
+        cy = int(rng.uniform(8, h + 56))
+        cx = int(rng.uniform(8, w + 56))
+        r = int(rng.uniform(2, 5))
+        big[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = \
+            float(rng.uniform(0, 255))
+    jit = rng.uniform(-4, 4, (t, 2)).astype(np.float32)
+    jit[0] = 0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = []
+    for k in range(t):
+        sx = xs - (32 + jit[k, 0])
+        sy = ys - (32 + jit[k, 1])
+        x0 = np.floor(sx).astype(np.int64)
+        y0 = np.floor(sy).astype(np.int64)
+        fx, fy = sx - x0, sy - y0
+
+        def tap(yi, xi):
+            ok = (yi >= 0) & (yi < h + 64) & (xi >= 0) & (xi < w + 64)
+            return np.where(ok, big[np.clip(yi, 0, h + 63),
+                                    np.clip(xi, 0, w + 63)], 0.0)
+        g = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1)) +
+             fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+        g = np.clip(np.round(g), 0, 255).astype(np.uint8)
+        frames.append(np.stack([g, g, g], -1))
+    return np.stack(frames), jit

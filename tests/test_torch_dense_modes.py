@@ -325,7 +325,7 @@ def test_run_frames_equals_stepping_by_hand_and_registry():
                                   "populationMap", "flowRedPoints",
                                   "android", "averageHSV", "timex",
                                   "brightColor", "phaseCorrelate",
-                                  "globalOrientation"}
+                                  "stabilizeTPU", "globalOrientation"}
     assert GRAY_INPUT == JAX_GRAY_INPUT & set(MODES) == \
         {"subtructAverageVector", "averageVector", "globalOrientation"}
     gray = [np.asarray(f)[..., 1] for f in FRAMES]    # 2-D gray frames

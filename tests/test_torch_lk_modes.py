@@ -166,9 +166,9 @@ def test_registry_holds_the_ported_modes():
                           "timelinesFarne", "subtructAverageVector",
                           "subtructAverageVectorWithWindow", "shearRate",
                           "averageVector", "android", "averageHSV", "timex",
-                          "brightColor", "phaseCorrelate",
+                          "brightColor", "phaseCorrelate", "stabilizeTPU",
                           "globalOrientation"}
-    assert set(MODES) <= set(JAX_MODES)
+    assert set(MODES) == set(JAX_MODES)
     with pytest.raises(KeyError):
-        next(runner.run_frames("stabilizeTPU", FRAMES, _cfg(),
+        next(runner.run_frames("stabilize", FRAMES, _cfg(),
                                device="cpu"))
