@@ -121,7 +121,30 @@ Every phase passes or raises (the script catches nothing):
    warm and a timed call ended by a device sync, dense_lk's K8 launches
    (30 a level, 120) and one traced call; dense_lk at 192x256 on the card
    against the CPU (``DENSE_LK_*`` limits); ``farneback_stream_lagged``
-   against ``farneback_stream`` on the card over 4 flows, equal.
+   against ``farneback_stream`` on the card over 4 flows, equal;
+13. the port's host rim through its CLI (``cli.main``) and ``run_video``
+   on the card, on in-memory video: the card's machine has no OpenCV, so
+   ``memory_video`` puts a reader of numpy frames and a writer that keeps
+   them where the port looks up ``VideoReader`` and ``VideoWriter``. (a)
+   the frame pump (``io/native.py``) builds from ``native/framepump.cpp``
+   with g++ (its seconds, its host ms a frame on 2 threads); on 8
+   1280x720 frames its 640x480 frames are within one level of the device
+   ``resize_bilinear`` and equal to the device's float resize rounded half
+   up, and its gray equals ``bgr_to_gray``; (b) ``--mode legacy`` over 40
+   frames: with --no-host-prep its frames equal ``run_frames``' bit for
+   bit; with the pump ``native_host_prep`` is true; K1/K2 6, K4 2, K5/K6 3
+   launches a frame; ms/frame of ``run_frames`` and of the CLI without
+   and with the pump, alternated; fps, stage seconds, device busy share
+   and device-to-host bytes a frame (traced runs); (c) ``--mode
+   timelines`` likewise, K3 once a frame; (d) ``subtructAverageVector``
+   from 640x480 frames: the gray upload's frames equal the BGR upload's;
+   (e) with --no-output, ``output_download`` is false and no
+   device-to-host copy reaches one gray frame's bytes; (f) kill and
+   resume (``--checkpoint-every``, ``--max-frames``, ``--resume``) equal
+   to the whole run bit for bit, for legacy and stabilizeTPU (Harris);
+   (g) ``--mode benchmark`` prints its two lines (K8 120 times a dense_lk
+   call), ``--mode validate`` exits 0 with its radii within ``ORBIT_PX``
+   of the CPU's, ``--mode legacy-full`` writes six streams of 8 frames.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -139,6 +162,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import pathlib
 import subprocess
@@ -151,7 +175,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from ripcurrents_tpu_torch import bench_warp, convert, kernels
+from ripcurrents_tpu_torch import bench_warp, cli, convert, kernels
 from ripcurrents_tpu_torch.config import (ANDROID_OVERLAY_WARMUP,
                                           FarnebackParams, LKParams)
 from ripcurrents_tpu_torch.dynamics.particles import timeline_init
@@ -165,6 +189,8 @@ from ripcurrents_tpu_torch.flow.lk_kernel import (PATCH_MARGIN, lk_track,
 from ripcurrents_tpu_torch.flow.dense_lk import dense_lk
 from ripcurrents_tpu_torch.flow.phasecorr import (hanning_window,
                                                   phase_correlate)
+from ripcurrents_tpu_torch.io import native as io_native
+from ripcurrents_tpu_torch.io import video as io_video
 from ripcurrents_tpu_torch.ops import image as img_ops
 from ripcurrents_tpu_torch.ops.warp import translate
 from ripcurrents_tpu_torch.pipelines import modes, runner
@@ -176,6 +202,7 @@ from ripcurrents_tpu_torch.synthetic import (make_jittered_clip,
                                              make_rip_clip, moving_frames)
 from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
                                                 reset_launches)
+from ripcurrents_tpu_torch.utils.checkpoint import load_meta
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 (non-tensor-core) flop/s.
@@ -1984,6 +2011,385 @@ def check_lagged(device, flows=4):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the CLI and run_video
+# ---------------------------------------------------------------------------
+
+# Scratch files of phase 13 (metrics JSON, checkpoints, traces), inside
+# the checkout (build/ is not committed).
+CLI_TMP = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+# validate's orbit on the card against the CPU's, each of its 3501 radii.
+ORBIT_PX = 1e-3
+# The legacy step's launches a frame ([3]); each run also expands its
+# first frame once (K5, K6).
+LEGACY_PER_FRAME = {"K1": 6, "K2": 6, "K3": 0, "K4": 2, "K5": 3, "K6": 3,
+                    "K7": 0, "K8": 0}
+
+
+@contextlib.contextmanager
+def memory_video(clips: dict):
+    """Put in-memory stand-ins where the port looks up its video reader
+    and writer (``io/video.py``): the card's machine has no OpenCV, so it
+    can neither decode nor encode. `clips` maps an input path to a list
+    of (H, W, 3) uint8 BGR numpy frames. Yields {output path: [frames
+    written]}. The writer keeps the arrays it is handed, not copies, as
+    the real writer's queue does until it encodes them: a runner that
+    reused a buffer its writer still held would change what was
+    written."""
+    written = {}
+
+    class Reader:
+        fps = 30.0
+
+        def __init__(self, path):
+            if path not in clips:
+                raise FileNotFoundError(f"no in-memory clip {path!r}")
+            self.frames = clips[path]
+
+        @property
+        def frame_count(self):
+            return len(self.frames)
+
+        @property
+        def size(self):
+            return self.frames[0].shape[:2]
+
+        def __iter__(self):
+            return iter(self.frames)
+
+        def close(self):
+            pass
+
+    class Writer:
+        def __init__(self, path, fps, size_hw, fourcc=None):
+            self.size_hw = tuple(size_hw)
+            self.frames = written[path] = []
+
+        def write(self, frame):
+            if frame.shape != (*self.size_hw, 3) or frame.dtype != np.uint8:
+                raise AssertionError(f"writer of {self.size_hw} got "
+                                     f"{frame.dtype} {frame.shape}")
+            self.frames.append(frame)
+
+        def write_batch(self, frames):
+            for f in frames:
+                self.write(f)
+
+        def close(self):
+            pass
+
+    with _patched(io_video, "VideoReader", Reader), \
+            _patched(io_video, "VideoWriter", Writer):
+        yield written
+
+
+def traced(fn, tries=3):
+    """fn() inside a torch.profiler session of the card, read from its
+    Chrome trace: the device kernels' total ms and the bytes of each
+    device-to-host copy. A session that records no kernel is
+    repeated, as ``device_events`` does. -> (fn's result, trace dict, or
+    None off the card)."""
+    if not torch.cuda.is_available():
+        return fn(), None
+    CLI_TMP.mkdir(parents=True, exist_ok=True)
+    path = CLI_TMP / "trace.json"
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            _sync(torch.device("cuda"))
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        if kern:
+            break
+        if i + 1 < tries:
+            print(f"    torch.profiler recorded no device kernel in a "
+                  f"session; profiling it again ({i + 2} of {tries})",
+                  flush=True)
+    d2h = []
+    for e in events:
+        if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", ""):
+            if "bytes" not in e.get("args", {}):
+                raise AssertionError(f"a device-to-host copy without its "
+                                     f"size in the trace: {e}")
+            d2h.append(int(e["args"]["bytes"]))
+    return out, {"device_ms": sum(e["dur"] for e in kern) / 1e3,
+                 "d2h_bytes": d2h}
+
+
+def cli_run(argv, clips, trace=False):
+    """``cli.main(argv + --metrics-json)`` on in-memory video, its printout
+    captured, every launch counter set to 0 just before; with `trace`,
+    inside a profiler session (``traced``). Raises unless it exits 0.
+    -> {"written": {path: (n, H, W, 3) array}, "metrics": the metrics
+    JSON or None, "launches", "stdout", "trace": dict or None}."""
+    CLI_TMP.mkdir(parents=True, exist_ok=True)
+    metrics = CLI_TMP / "metrics.json"
+    metrics.unlink(missing_ok=True)
+    out = io.StringIO()
+
+    def call():
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([*argv, "--metrics-json", str(metrics)])
+        return rc, launch_counts()
+
+    with memory_video(clips) as written:
+        (rc, launches), trace = traced(call) if trace else (call(), None)
+    if rc != 0:
+        raise AssertionError(f"cli.main({argv}) exited {rc}:\n"
+                             f"{out.getvalue()[-2000:]}")
+    return {"written": {k: np.stack(v) for k, v in written.items()},
+            "metrics": json.loads(metrics.read_text())
+            if metrics.exists() else None,
+            "launches": launches, "stdout": out.getvalue(), "trace": trace}
+
+
+def _only(written: dict) -> np.ndarray:
+    if len(written) != 1:
+        raise AssertionError(f"expected one output stream: {list(written)}")
+    return next(iter(written.values()))
+
+
+def check_pump(device, n=8, hw=(480, 640), raw_hw=(RAW_H, RAW_W)):
+    """[13a] The frame pump (``io/native.py``) built from
+    ``native/framepump.cpp`` on this host, on n 1280x720 moving-texture
+    frames resized to 640x480 (`raw_hw`, `hw`), against the port's device
+    ``resize_bilinear`` of the same frames: within one level everywhere,
+    and equal to the device's float resize rounded half up at every
+    pixel (the pump rounds ties up as cv2 does; ``resize_bilinear`` rounds
+    them to even, as the JAX package's does). Its gray equals
+    ``bgr_to_gray`` of its resized frames bit for bit. Raises otherwise."""
+    t0 = time.perf_counter()
+    if not io_native.available():
+        raise AssertionError("the frame pump did not build (no g++?)")
+    build_s = time.perf_counter() - t0
+    raw = moving_frames(n, *raw_hw, torch.device("cpu")).numpy()
+    pump = io_native.FramePump(raw_hw, hw, threads=2, capacity=n)
+    t0 = time.perf_counter()
+    for f in raw:
+        pump.push(f)
+    pump.close()
+    resized, gray = pump.pop_batch(n)
+    pump_ms = (time.perf_counter() - t0) * 1e3 / n
+    if len(resized) != n:
+        raise AssertionError(f"the pump delivered {len(resized)} of {n}")
+    frames = torch.from_numpy(raw).to(device)
+    dev_u8 = torch.stack([img_ops.resize_bilinear(f, hw) for f in frames])
+    dev_f = torch.stack([img_ops.resize_bilinear(f.float(), hw)
+                         for f in frames])
+    mine = torch.from_numpy(resized).to(device)
+    d = (mine.int() - dev_u8.int()).abs()
+    res = {"build_s": round(build_s, 2),
+           "ms_per_frame_2_threads": round(pump_ms, 3),
+           "max_level": int(d.max()),
+           "equal_pixel_share": float((d == 0).all(-1).float().mean()),
+           "equal_to_float_half_up": bool(
+               (mine.float() == torch.floor(dev_f + 0.5)).all()),
+           "gray_equal": bool((img_ops.bgr_to_gray(mine) ==
+                               torch.from_numpy(gray).to(device)).all())}
+    if res["max_level"] > 1 or not res["equal_to_float_half_up"] or \
+            not res["gray_equal"]:
+        raise AssertionError(f"frame pump vs the device resize: {res}")
+    return res
+
+
+def alternated(device, mode, raw, dims):
+    """`mode` over the in-memory clip `raw` by ``run_frames`` (A) and by
+    ``cli.main`` without (B) and with (C) the frame pump, in the order A B
+    C C B A (host clocks of one process vary by tens of percent), all
+    with the CLI's own ModeConfig. B's first frames must equal A's first
+    outputs bit for bit, or it raises. -> {"run_frames": [ms/frame, ...],
+    "no host prep": [CLI run, ...], "pump": [CLI run, ...]}."""
+    argv = ["clip.mem", str(CLI_TMP / mode), "--mode", mode, *dims]
+    cfg = cli._mode_config(cli.build_parser().parse_args(argv))
+    runs = {"run_frames": [], "no host prep": [], "pump": []}
+    ref = []
+
+    def frames_run():
+        stats = runner.RunStats()
+        outs = list(runner.run_frames(mode, raw, cfg, device=device,
+                                      stats=stats))
+        if not ref:
+            ref.append(torch.stack(outs).cpu().numpy())
+        return stats.seconds * 1e3 / stats.frames
+
+    calls = {"run_frames": frames_run,
+             "no host prep": lambda: cli_run(argv + ["--no-host-prep"],
+                                             {"clip.mem": raw}),
+             "pump": lambda: cli_run(argv, {"clip.mem": raw})}
+    for name in ("run_frames", "no host prep", "pump", "pump",
+                 "no host prep", "run_frames"):
+        runs[name].append(calls[name]())
+    got = _only(runs["no host prep"][0]["written"])
+    if got.shape != ref[0].shape or not np.array_equal(got, ref[0]):
+        raise AssertionError(f"{mode}: cli.main's frames {got.shape} differ "
+                             f"from run_frames' {ref[0].shape}")
+    return runs
+
+
+def _ms_per_frame(timed) -> dict:
+    return {name: [round(r if isinstance(r, float) else
+                         r["metrics"]["seconds"] * 1e3 / r["metrics"]["frames"],
+                         3) for r in runs] for name, runs in timed.items()}
+
+
+def _summary(run, traced_run=None) -> dict:
+    """What [13] prints of a CLI run: fps, seconds and stage seconds from
+    its metrics, the seconds outside every stage (mostly the loop waiting
+    for decode or the pump); device ms, busy share (device ms over the
+    untraced run's seconds) and device-to-host bytes a frame from
+    `traced_run`'s trace."""
+    m = run["metrics"]
+    res = {"fps": m["fps"], "seconds": m["seconds"],
+           "stages_s": m["stages_s"],
+           "outside_stages_s": round(m["seconds"] -
+                                     sum(m["stages_s"].values()), 4)}
+    t = (traced_run or {}).get("trace")
+    if t is not None:
+        res.update(device_ms=round(t["device_ms"], 3),
+                   busy_share=round(t["device_ms"] / 1e3 / m["seconds"], 4),
+                   d2h_bytes_per_frame=sum(t["d2h_bytes"]) / m["frames"])
+    return res
+
+
+def _launches(device, want: dict) -> dict:
+    """`want`, or every count 0 off the card (the plain versions count
+    no launch)."""
+    return want if device.type == "cuda" else dict.fromkeys(want, 0)
+
+
+def resume_check(device, mode, raw, every, cut, extra=()):
+    """[13f] Kill and resume: ``cli.main`` for `mode` over the whole clip,
+    then cut with --max-frames `cut` and --checkpoint-every `every`, then
+    --resume from its checkpoint. The cut run's frames equal the whole
+    run's first `cut`, and the resumed run's equal the whole run's from
+    the checkpoint on, bit for bit. -> the frame the checkpoint holds."""
+    ckpt = CLI_TMP / f"{mode}.ckpt"
+    base = ["clip.mem", str(CLI_TMP / mode), "--mode", mode, *extra]
+    clips = {"clip.mem": raw}
+    full = _only(cli_run(base, clips)["written"])
+    part1 = _only(cli_run(base + ["--checkpoint-every", str(every),
+                                  "--max-frames", str(cut), "--checkpoint",
+                                  str(ckpt)], clips)["written"])
+    done = load_meta(str(ckpt))["processed"]
+    part2 = _only(cli_run(base + ["--resume", f"{ckpt}.npz"],
+                          clips)["written"])
+    if not (np.array_equal(part1, full[:cut]) and
+            np.array_equal(part2, full[done:])):
+        raise AssertionError(f"{mode}: kill at {cut} and resume from "
+                             f"{done} differ from the whole run")
+    return {"frames": len(full), "cut": len(part1), "checkpoint": done,
+            "resumed": len(part2)}
+
+
+def cli_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W)):
+    """[13] The port's CLI and ``run_video`` on the card, on in-memory
+    video (``memory_video``) at `hw` (640x480) from `raw_hw` (1280x720)
+    frames: the frame pump, legacy and timelines through ``cli.main``
+    against ``run_frames``, the gray upload against the BGR one, no
+    download without output, kill and resume, and the special modes.
+    Returns what main prints; raises on any failure."""
+    h, w = hw
+    dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type]
+    res = {"pump": check_pump(device, hw=hw, raw_hw=raw_hw)}
+    raw = list(moving_frames(FRAMES + 1, *raw_hw,
+                             torch.device("cpu")).numpy())
+    clips = {"clip.mem": raw}
+    want = _launches(device, {k: v * FRAMES + 3 * (k in ("K5", "K6"))
+                              for k, v in LEGACY_PER_FRAME.items()})
+    argv = ["clip.mem", str(CLI_TMP / "legacy"), "--mode", "legacy", *dims]
+    timed = alternated(device, "legacy", raw, dims)
+    no_prep_t = cli_run(argv + ["--no-host-prep"], clips, trace=True)
+    pumped_t = cli_run(argv, clips, trace=True)
+    for r, pump in ((timed["no host prep"][-1], False), (no_prep_t, False),
+                    (timed["pump"][-1], True), (pumped_t, True)):
+        if r["launches"] != want or r["metrics"]["frames"] != FRAMES or \
+                r["metrics"]["native_host_prep"] != pump:
+            raise AssertionError(f"legacy through cli.main: launches "
+                                 f"{r['launches']} (expected {want}), "
+                                 f"metrics {r['metrics']}")
+    res["legacy"] = {
+        "ms_per_frame": _ms_per_frame(timed),
+        "no host prep": _summary(timed["no host prep"][-1], no_prep_t),
+        "pump": _summary(timed["pump"][-1], pumped_t),
+        "launches_per_frame": {k: v / FRAMES for k, v in want.items()}}
+    timed = alternated(device, "timelines", raw, dims)
+    tl = timed["no host prep"][-1]
+    if tl["launches"]["K3"] != _launches(device, {"K3": FRAMES})["K3"]:
+        raise AssertionError(f"timelines: launches {tl['launches']}")
+    res["timelines"] = {"ms_per_frame": _ms_per_frame(timed),
+                        "no host prep": _summary(tl),
+                        "pump": _summary(timed["pump"][-1]),
+                        "k3_per_frame": tl["launches"]["K3"] / FRAMES}
+
+    at_size = list(moving_frames(9, h, w, torch.device("cpu")).numpy())
+    argv = ["clip.mem", str(CLI_TMP / "gray"), "--mode",
+            "subtructAverageVector", *dims]
+    gray = cli_run(argv, {"clip.mem": at_size})
+    with _patched(runner, "GRAY_INPUT", frozenset()):
+        bgr = cli_run(argv, {"clip.mem": at_size})
+    if not gray["metrics"]["gray_upload"] or bgr["metrics"]["gray_upload"] \
+            or not np.array_equal(_only(gray["written"]),
+                                  _only(bgr["written"])):
+        raise AssertionError("subtructAverageVector: the gray upload's "
+                             "frames differ from the BGR upload's")
+    res["gray_upload"] = {"frames": len(_only(gray["written"])),
+                          "equal": True}
+
+    quiet = cli_run(["clip.mem", "--mode", "legacy", "--no-output",
+                     "--no-host-prep", *dims], clips, trace=True)
+    copies = (quiet["trace"] or {}).get("d2h_bytes", [])
+    biggest = max(copies, default=0)
+    if quiet["metrics"]["output_download"] or quiet["written"] or \
+            biggest >= h * w:
+        raise AssertionError(f"--no-output downloaded: largest "
+                             f"device-to-host copy {biggest} B, metrics "
+                             f"{quiet['metrics']}")
+    res["no_output"] = dict(_summary(quiet, quiet), largest_d2h_bytes=biggest,
+                            d2h_copies=len(copies))
+
+    stab = list(stab_clip(STAB_FRAMES - 1, h, w)[0])
+    res["resume"] = {
+        "legacy": resume_check(device, "legacy", raw, 16, 24, dims),
+        "stabilizeTPU (harris)": resume_check(
+            device, "stabilizeTPU", stab, 4, 4,
+            ("--stab-features", "harris", *dims))}
+
+    pair = {"pair.mem": raw[:2]}
+    bench = cli_run(["pair.mem", "--mode", "benchmark", *dims], pair)
+    lines = bench["stdout"].strip().splitlines()
+    if len(lines) != 2 or not lines[0].startswith("farneback ") or \
+            not lines[1].startswith(f"lk (dense grid, {h * w} points)") \
+            or bench["launches"]["K8"] != _launches(device,
+                                                    {"K8": 240})["K8"]:
+        raise AssertionError(f"benchmark: {lines}, launches "
+                             f"{bench['launches']} (a warm and a timed "
+                             f"dense_lk call, 120 K8 each)")
+    res["benchmark"] = {"lines": lines,
+                        "k8_per_dense_lk_call": bench["launches"]["K8"] / 2}
+    val = cli_run(["pair.mem", "--mode", "validate", *dims], pair)
+    r_card = cli.validate_orbit(h, w, device)
+    r_cpu = cli.validate_orbit(h, w, torch.device("cpu"))
+    drift = abs(r_card[-1] - r_card[0]) / r_card[0]
+    gap = float(np.abs(r_card - r_cpu).max())
+    if drift >= 0.05 or gap > ORBIT_PX:
+        raise AssertionError(f"validate: drift {drift}, radii {gap} px from "
+                             f"the CPU's")
+    res["validate"] = {"line": val["stdout"].strip(),
+                       "radii_max_px_from_cpu": gap}
+    full = cli_run(["clip.mem", "--mode", "legacy-full", "--max-frames",
+                    "8", *dims], {"clip.mem": raw[:9]})["written"]
+    got = {k: v.shape for k, v in full.items()}
+    want = {f"{stem}.mp4": (8,) + ((min(hw),) * 2 if field ==
+                                   "hist_wheel_bgr" else hw) + (3,)
+            for field, stem in cli.LEGACY_STREAMS.items()}
+    if got != want:
+        raise AssertionError(f"legacy-full wrote {got}, expected {want}")
+    res["legacy_full"] = got
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: kernel timing
 # ---------------------------------------------------------------------------
 
@@ -3030,6 +3436,29 @@ def main() -> int:
         "stabilizeTPU per frame (harris, akaze)": [stab_k8["harris"],
                                                    stab_k8["akaze"]],
         "dense_lk per 640x480 call": lkw["launches"]["K8"]}
+
+    t0 = time.perf_counter()
+    c = cli_phase(dev)
+    print(f"[13] frame pump 1280x720 -> 640x480, 8 frames: {c['pump']}")
+    for name in ("no host prep", "pump"):
+        print(f"[13] cli.main --mode legacy ({name}), {FRAMES} frames of "
+              f"{RAW_W}x{RAW_H}: {c['legacy'][name]}")
+    print(f"[13] legacy: cli.main's frames (no host prep) equal "
+          f"run_frames' bit for bit; ms/frame (host clock, runs in the "
+          f"order A B C C B A) {c['legacy']['ms_per_frame']}; launches per "
+          f"frame {c['legacy']['launches_per_frame']}")
+    print(f"[13] cli.main --mode timelines, {FRAMES} frames: "
+          f"{c['timelines']}; frames (no host prep) equal run_frames' bit "
+          f"for bit")
+    print(f"[13] subtructAverageVector from 640x480 frames: gray upload vs "
+          f"BGR upload {c['gray_upload']}")
+    print(f"[13] cli.main --mode legacy --no-output: {c['no_output']}")
+    for mode, r in c["resume"].items():
+        print(f"[13] kill and resume, {mode}: {r}; bit-identical")
+    print(f"[13] --mode benchmark: {c['benchmark']}")
+    print(f"[13] --mode validate: {c['validate']}")
+    print(f"[13] --mode legacy-full: {c['legacy_full']}")
+    print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
-"""Particle advection through flow fields (port of the functions of
-``ripcurrents_tpu/dynamics/advect.py`` that the ported modes need:
-streamline, streamline_field, get_delta; ripcurrents_module.cpp:486-528,
-:608-679).
+"""Particle advection through flow fields (port of
+``ripcurrents_tpu/dynamics/advect.py``: streamline(s), streamline_field,
+get_delta, delta_field and the synthetic field of the validator;
+ripcurrents_module.cpp:486-528, :608-679, main.cpp:303-443).
 
 Every seed (or every pixel's particle) advances at once, with a sticky
 `active` flag in place of the reference's early returns. Points are
@@ -37,15 +37,17 @@ def sample_flow(flow: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
 
 
 class StreamlineResult(NamedTuple):
-    points: torch.Tensor     # (N, iters+1, 2) visited positions
-    final: torch.Tensor      # (N, 2) final positions
-    seg_valid: torch.Tensor  # (N, iters) bool — segment i..i+1 was stepped
+    points: torch.Tensor     # ([N,] iters+1, 2) visited positions
+    final: torch.Tensor      # ([N,] 2) final positions
+    seg_valid: torch.Tensor  # ([N,] iters) bool — segment i..i+1 was stepped
 
 
 def streamlines(pts0: torch.Tensor, flow: torch.Tensor, dt: float,
-                iterations: int, upper=math.inf) -> StreamlineResult:
+                iterations: int, upper=math.inf,
+                speed_cap: "float | None" = None) -> StreamlineResult:
     """Euler-advect (N, 2) seeds; each stops out of bounds or when
-    |delta| > upper."""
+    |delta| > upper (or > speed_cap: streamline_2's fixed `r > 5` stop).
+    The sticky `active` flag stays on the device: no step waits for it."""
     pt = pts0.to(torch.float32)
     active = torch.ones(pt.shape[0], dtype=torch.bool, device=pt.device)
     pts, oks = [pt], []
@@ -53,11 +55,22 @@ def streamlines(pts0: torch.Tensor, flow: torch.Tensor, dt: float,
         d, valid = sample_flow(flow, pt[:, 0], pt[:, 1])
         r = torch.sqrt(torch.sum(d * d, dim=-1))
         active = active & valid & (r <= upper)
+        if speed_cap is not None:
+            active = active & (r <= speed_cap)
         pt = torch.where(active[:, None], pt + d * dt, pt)
         pts.append(pt)
         oks.append(active)
     return StreamlineResult(torch.stack(pts, dim=1), pt,
                             torch.stack(oks, dim=1))
+
+
+def streamline(pt0: torch.Tensor, flow: torch.Tensor, dt: float,
+               iterations: int, upper=math.inf,
+               speed_cap: "float | None" = None) -> StreamlineResult:
+    """:func:`streamlines` of one (2,) seed: points (iters+1, 2), final
+    (2,), seg_valid (iters,)."""
+    res = streamlines(pt0[None], flow, dt, iterations, upper, speed_cap)
+    return StreamlineResult(*(t[0] for t in res))
 
 
 class FieldState(NamedTuple):
@@ -114,3 +127,15 @@ def delta_field(flow: torch.Tensor, dt: float, upper) -> torch.Tensor:
     r = torch.sqrt(torch.sum(d * d, dim=-1))
     ok = valid & (r <= upper)
     return torch.where(ok[..., None], d * dt, 0.0)
+
+
+def circular_field(h: int, w: int, device="cpu") -> torch.Tensor:
+    """The synthetic validation field of validate_streamlines
+    (main.cpp:374-380): flow.x = -(row - H/2)/H * 100,
+    flow.y = (col - W/2)/W * 100. -> (H, W, 2) float32 on `device`."""
+    ys, xs = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
+    fx = -(ys - h / 2.0) / h * 100.0
+    fy = (xs - w / 2.0) / w * 100.0
+    return torch.stack([fx, fy], dim=-1)

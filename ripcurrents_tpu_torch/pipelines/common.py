@@ -49,9 +49,11 @@ class ModeConfig:
     n_streamline_seeds: int = 20
     legacy_seeds: int = 250
     phase_roi: Tuple[int, int, int, int] = (XDIM - 50, 50, 50, 50)
-    # Optional Farneback warp override applied on top of each mode's
+    # Optional Farneback warp overrides applied on top of each mode's
     # call-site preset (None = keep the preset's choice).
     warp_impl: "str | None" = None
+    warp_residual: "int | None" = None
+    warp_subcol: "int | None" = None
     # stabilizeTPU's feature engine: 'harris' (corners + patch
     # descriptors) or 'akaze' (nonlinear-scale-space det-Hessian keypoints
     # + rotated binary descriptors, flow/akaze_tpu.py; the reference's
@@ -60,10 +62,18 @@ class ModeConfig:
 
 
 def fb_preset(preset: FarnebackParams, cfg: ModeConfig) -> FarnebackParams:
-    """Apply the ModeConfig warp override to a call-site preset."""
-    if cfg.warp_impl is None:
-        return preset
-    return dataclasses.replace(preset, warp_impl=cfg.warp_impl)
+    """Apply the ModeConfig warp overrides to a call-site preset."""
+    kw = {}
+    if cfg.warp_impl is not None:
+        kw["warp_impl"] = cfg.warp_impl
+    if cfg.warp_residual is not None:
+        kw["warp_residual"] = cfg.warp_residual
+        # An explicit residual must take effect: the engine prefers
+        # warp_residual_hires on >= 1 MP frames, which would swallow it.
+        kw["warp_residual_hires"] = None
+    if cfg.warp_subcol is not None:
+        kw["warp_subcol"] = cfg.warp_subcol
+    return dataclasses.replace(preset, **kw) if kw else preset
 
 
 def to_device(raw, device: torch.device) -> torch.Tensor:

@@ -28,6 +28,7 @@ from ripcurrents_tpu_torch.ops.color import hsv_to_bgr
 from ripcurrents_tpu_torch.ops.colormap import apply_colormap, normalize_to_u8
 from ripcurrents_tpu_torch.ops.polar import flow_to_polar
 from ripcurrents_tpu_torch.pipelines.common import (FlowStream, ModeConfig,
+                                                    fb_preset,
                                                     flow_stream_init,
                                                     flow_stream_step,
                                                     prep_frame, register,
@@ -69,7 +70,7 @@ def make_legacy(cfg: ModeConfig, device="cuda"):
     as numpy arrays or tensors. device="cuda" (the default) raises when
     no card is available; pass device="cpu" for the plain versions."""
     dev = resolve_device(device)
-    fb = FarnebackParams.legacy()
+    fb = fb_preset(FarnebackParams.legacy(), cfg)
     thr = Thresholds(upper_init=100.0)   # ripcurrents.cpp:145
 
     def init(first_raw) -> LegacyState:

@@ -10,8 +10,12 @@ stabilization modes (``averageHSV``, ``timex``, ``brightColor``,
 One entry per compute_* function of the reference (RipCurrents_main/
 main.cpp). Each factory takes (cfg, device) and returns (init, step);
 ``step(state, raw_frame) -> (state, out_u8)``. States are NamedTuples of
-tensors on the factory's device; a step launches device work only and
-never waits for it.
+tensors on the factory's device. A step launches device work and does
+not wait for it, with two exceptions: ``stabilizeTPU``'s step waits on
+the card 6 times a Harris frame (the frame upload, its frame count and
+RANSAC's SVDs; see its docstring), and a step that bins a histogram with
+``torch.bincount`` (``ops/hist.py``: legacy, android) waits twice, as
+bincount reads its input's min and max from a CUDA tensor.
 """
 
 from __future__ import annotations

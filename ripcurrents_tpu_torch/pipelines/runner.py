@@ -1,28 +1,62 @@
-"""Stream runner: drives a registered mode's step over frames (the device
-half of ``ripcurrents_tpu/pipelines/runner.py``).
+"""Stream runner: drives a registered mode's step over frames (port of
+``ripcurrents_tpu/pipelines/runner.py``).
 
-Frames come from any iterable of (H, W, 3) uint8 BGR arrays or tensors;
-each is uploaded, stepped, and its output frame yielded as a tensor on
-the device. There is no video decode here and no chunked scan: PyTorch
-runs eagerly, so the loop is a plain one and a step never waits for the
-device.
+``run_frames`` takes any iterable of (H, W, 3) uint8 BGR arrays or
+tensors; each is uploaded, stepped, and its output frame yielded as a
+tensor on the device. ``run_video`` takes a video file or camera and
+pipelines the host and the card:
+
+- decode (+ the native frame pump's resize and gray, ``io/native.py``)
+  runs on a producer thread, feeding fixed-size chunks through a bounded
+  queue;
+- each chunk is copied into pinned host memory and uploaded on a side
+  CUDA stream one chunk ahead of the steps that read it;
+- the steps are PyTorch's eager launches, one frame at a time (the loop
+  of ``run_frames``). Most steps only launch device work, so the host
+  runs ahead of the card; ``stabilizeTPU``'s step waits on the card (6
+  times a Harris frame: its upload, its frame count, its SVDs) and the
+  steps that bin a histogram with ``torch.bincount`` (legacy, android)
+  twice a frame, so their chunks do not run ahead;
+- the previous chunk's outputs are stacked on the device and copied into
+  pinned memory once the current chunk's steps are issued, then handed to
+  the writer thread, which encodes. With no writer and no preview
+  nothing is downloaded: the runner waits on an event of each chunk's
+  last output instead.
 
 ``ModeConfig.total_frames`` (the reference's CAP_PROP_FRAME_COUNT) left
 at 0 is taken from the source's length, at least 1, as the JAX runner
 takes it from the video. The modes that shade their trails by it raise
 on a source without a length unless the config gives the count.
+
+With the frame pump (built from ``native/framepump.cpp`` at first use),
+steady-state frames are resized on host worker threads before upload:
+the mode's device INTER_LINEAR resize is then an identity at the target
+size. The pump's fixed-point resize and the device float resize are each
+within +-1 LSB of cv2.resize and may differ from each other by 1 at a few
+pixels, which chaotic trackers can amplify over long clips: pass
+host_prep=False for bit-stable comparisons with the device path. First
+frames keep the raw path because the reference preloads with INTER_AREA
+(main.cpp:125).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import queue
+import threading
 import time
 from typing import Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from ripcurrents_tpu_torch import resolve_device
-from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
+from ripcurrents_tpu_torch.io import native as io_native
+from ripcurrents_tpu_torch.io import video as io_video
+from ripcurrents_tpu_torch.pipelines.common import (GRAY_INPUT, MODES,
+                                                    ModeConfig)
 # mode registration side effects
 from ripcurrents_tpu_torch.pipelines import android as _android  # noqa: F401
 from ripcurrents_tpu_torch.pipelines import legacy as _legacy  # noqa: F401
@@ -81,3 +115,342 @@ def run_frames(mode: str, frames: Iterable, cfg: ModeConfig = ModeConfig(),
             stats.frames = done
             stats.state = state
             stats.seconds = time.perf_counter() - t0
+
+
+def bgr_to_gray_host(frames: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(COLOR_BGR2GRAY)'s fixed point on the host, in numpy:
+    (..., 3) uint8 BGR -> (...) uint8, (B*1868 + G*9617 + R*4899 + 2^13)
+    >> 14, as ``ops/image.py: bgr_to_gray`` on the device."""
+    f = frames.astype(np.int32)
+    return ((f[..., 0] * 1868 + f[..., 1] * 9617 + f[..., 2] * 4899 +
+             (1 << 13)) >> 14).astype(np.uint8)
+
+
+def _have_cv2() -> bool:
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _chunk_source(frames_iter, chunk: int, frame_skip: int,
+                  max_frames: Optional[int], pump, prefetch: int = 3,
+                  gray_hw: "Optional[tuple]" = None):
+    """Decode (and optionally host-prep) frames on a producer thread,
+    yielding (T<=chunk, H, W, 3) uint8 stacks, or (T<=chunk, H, W) gray
+    stacks for gray-input modes (`gray_hw` = target (ydim, xdim)): resize
+    (cv2 INTER_LINEAR, only where the frame is not at the target size) +
+    BGR2GRAY run on the host (the reference's ops and order,
+    main.cpp:493-494), cutting upload bytes 3x. Closing the generator
+    stops the producer and the pump."""
+    q: queue.Queue = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def put(item):
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                pass
+
+    def to_gray(f):
+        if f.shape[:2] != gray_hw:
+            import cv2
+            f = cv2.resize(f, (gray_hw[1], gray_hw[0]),
+                           interpolation=cv2.INTER_LINEAR)
+        return bgr_to_gray_host(f)
+
+    def produce():
+        try:
+            n = 0
+            skip = 0
+            buf = []
+            for f in frames_iter:
+                if stop.is_set():
+                    return
+                skip += 1
+                if skip % frame_skip:  # android-style decode subsampling
+                    continue
+                if pump is not None:
+                    pump.push(f)
+                else:
+                    buf.append(to_gray(f) if gray_hw is not None else f)
+                    if len(buf) == chunk:
+                        put(np.stack(buf))
+                        buf = []
+                n += 1
+                if max_frames and n >= max_frames:
+                    break
+            if pump is not None:
+                pump.close()
+            else:
+                if buf:
+                    put(np.stack(buf))
+                put(None)
+        except Exception as e:  # surface decode errors to the consumer
+            if pump is not None:
+                pump.close()
+            put(e)
+
+    producer = threading.Thread(target=produce, daemon=True)
+    producer.start()
+    try:
+        if pump is not None:
+            while True:
+                resized, gray = pump.pop_batch(chunk)
+                if len(resized) == 0:
+                    # the producer closed the pump: at its end, or just
+                    # before reporting an error
+                    producer.join()
+                    if not q.empty():
+                        raise q.get_nowait()
+                    return
+                yield gray if gray_hw is not None else resized
+        else:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+    finally:
+        stop.set()
+        if pump is not None:
+            pump.close()
+        producer.join()
+
+
+def _device_prefetch(gen, timer, device: torch.device, depth: int = 1):
+    """Upload chunks to the device one ahead of consumption. Yields
+    (device chunk, upload event or None, pinned host chunk or None).
+
+    On a card each chunk is copied into pinned host memory and uploaded
+    with a non-blocking copy on a side stream (a copy from pageable
+    memory would be synchronous), so chunk i+1's transfer overlaps chunk
+    i's steps. The consumer makes its stream wait on the event before
+    the chunk's first step and holds the pinned chunk until its steps
+    are done. The 'upload' timer stage records the staging copy and the
+    issue only."""
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    buf = []
+    for item in gen:
+        with timer.stage("upload"):
+            if side is None:
+                buf.append((torch.from_numpy(item), None, None))
+            else:
+                host = torch.empty(item.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+                host.copy_(torch.from_numpy(item))
+                with torch.cuda.stream(side):
+                    dev = host.to(device, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(side)
+                buf.append((dev, done, host))
+        if len(buf) > depth:
+            yield buf.pop(0)
+    yield from buf
+
+
+def _download(outs: list, ready, side) -> "tuple[np.ndarray, object]":
+    """Stack a chunk's output frames on the device and copy them into
+    pinned host memory, on the `side` stream after the `ready` event
+    (a card), or directly (the CPU). -> (host frames, event to wait on or
+    None)."""
+    if side is None:
+        return torch.stack(outs).numpy(), None
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        stacked = torch.stack(outs)
+        host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                           pin_memory=True)
+        host.copy_(stacked, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(side)
+    return host.numpy(), done
+
+
+def run_video(mode: str, video_in: str, video_out: Optional[str],
+              cfg: Optional[ModeConfig] = None, chunk: int = 8,
+              max_frames: Optional[int] = None,
+              frame_skip: int = 1,
+              host_prep: bool = True,
+              checkpoint_every: Optional[int] = None,
+              checkpoint_path: Optional[str] = None,
+              resume: Optional[str] = None,
+              metrics_json: Optional[str] = None,
+              preview: bool = False,
+              progress: bool = True,
+              device=None) -> RunStats:
+    """Process a video through `mode`, optionally writing the overlay video.
+
+    device=None means the CUDA card and raises when there is none; pass
+    "cpu" for the plain PyTorch versions. checkpoint_every=N saves the
+    mode's state + frame offset to checkpoint_path every >=N processed
+    frames (the state after the chunk just written); resume=path restores
+    it and skips the already-processed frames, so a killed stream run
+    continues where it stopped (the reference loses all temporal state
+    on exit, SURVEY.md section 5)."""
+    from ripcurrents_tpu_torch.utils.checkpoint import (load_meta,
+                                                        load_state,
+                                                        save_state)
+    from ripcurrents_tpu_torch.utils.profiling import StageTimer
+    dev = resolve_device("cuda" if device is None else device)
+    reader = io_video.VideoReader(video_in)
+    if cfg is None:
+        cfg = ModeConfig()
+    if cfg.total_frames <= 0:
+        cfg = dataclasses.replace(cfg, total_frames=max(reader.frame_count, 1))
+    if mode not in MODES:
+        raise KeyError(f"unknown mode {mode!r}; available: {sorted(MODES)}")
+    init_fn, step = MODES[mode](cfg, device=dev)
+    writer = None
+    stats = RunStats()
+    timer = StageTimer()
+    frames_iter = iter(reader)
+    # Preload first frame raw to initialize state (reference preloads with
+    # INTER_AREA, main.cpp:476-480: done on the device by the mode's init).
+    try:
+        first = next(frames_iter)
+    except StopIteration:
+        raise RuntimeError("empty input video")
+    state = init_fn(first)
+
+    frames_done = 0
+    if resume:
+        meta = load_meta(resume)
+        state = load_state(resume, like=state)
+        frames_done = int(meta.get("processed", 0))
+        # Reproduce the producer's raw-frame alignment: each processed
+        # frame consumed frame_skip raw frames.
+        for _ in range(frames_done * frame_skip):
+            try:
+                next(frames_iter)
+            except StopIteration:
+                break
+        if max_frames is not None:
+            max_frames = max(max_frames - frames_done, 0)
+        if progress:
+            print(f"resumed at frame {frames_done} from {resume}",
+                  flush=True)
+
+    target = (cfg.ydim, cfg.xdim)
+    pump = None
+    if host_prep and video_in != "-" and first.shape[:2] != target and \
+            io_native.available():
+        pump = io_native.FramePump(first.shape[:2], target, threads=2,
+                                   capacity=4 * chunk)
+    # Gray-input modes upload gray frames: the pump's, or the host's
+    # BGR2GRAY of frames at the target size (cv2 resizes others first;
+    # without cv2 the mode's own device prep does it from BGR).
+    gray_in = mode in GRAY_INPUT and (pump is not None or
+                                      first.shape[:2] == target or
+                                      _have_cv2())
+
+    last_ckpt = 0
+    # cv2.imshow on a displayless host aborts the process inside Qt (not a
+    # catchable Python exception), so gate on $DISPLAY up front.
+    _preview_ok = bool(os.environ.get("DISPLAY") or
+                       os.environ.get("WAYLAND_DISPLAY"))
+    if preview and not _preview_ok and progress:
+        print("preview disabled: no display", flush=True)
+    # With no writer and no preview nobody consumes the rendered frames:
+    # skip the download and wait on an event of each chunk's last output.
+    need_frames = bool(video_out) or (preview and _preview_ok)
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+
+    def flush(pending):
+        nonlocal last_ckpt, writer
+        outs, ready, chunk_state, _ = pending
+        with timer.stage("materialize"):
+            if need_frames:
+                host, done = _download(outs, ready, side)
+                if done is not None:
+                    done.synchronize()
+            elif ready is not None:
+                ready.synchronize()
+        with timer.stage("encode"):
+            if video_out:
+                if writer is None:
+                    writer = io_video.VideoWriter(video_out, reader.fps,
+                                                  host.shape[1:3])
+                writer.write_batch(host)
+        if preview and _preview_ok:
+            # the reference's imshow windows (e.g. main.cpp:502); shows the
+            # last frame of each chunk to keep up with device rate
+            import cv2
+            cv2.imshow(mode, host[-1])
+            cv2.waitKey(1)
+        stats.frames += len(outs)
+        if (checkpoint_every and checkpoint_path and
+                stats.frames - last_ckpt >= checkpoint_every):
+            save_state(checkpoint_path, chunk_state,
+                       {"processed": frames_done + stats.frames,
+                        "mode": mode})
+            last_ckpt = stats.frames
+        if progress:
+            print(f"frames processed: {stats.frames}", flush=True)
+
+    t0 = time.perf_counter()
+    pending = None
+    source = _chunk_source(frames_iter, chunk, frame_skip, max_frames,
+                           pump, gray_hw=target if gray_in else None)
+    try:
+        for frames, uploaded, host_in in _device_prefetch(source, timer,
+                                                          dev):
+            with timer.stage("dispatch"):
+                if uploaded is not None:
+                    cur = torch.cuda.current_stream(dev)
+                    cur.wait_event(uploaded)
+                    # the chunk was allocated on the side stream
+                    frames.record_stream(cur)
+                outs = []
+                for t in range(frames.shape[0]):
+                    state, out = step(state, frames[t])
+                    outs.append(out)
+                ready = None
+                if cuda:
+                    ready = torch.cuda.Event()
+                    ready.record()
+            if pending is not None:
+                flush(pending)  # overlaps the device's work on this chunk
+            # The pinned upload (host_in) lives in `pending` until flush
+            # has waited on `ready`, which follows its copy's event.
+            pending = (outs, ready, state, host_in)
+        if pending is not None:
+            flush(pending)
+    finally:
+        source.close()      # stops the producer before the reader goes
+        reader.close()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    stats.seconds = time.perf_counter() - t0
+    stats.state = state
+    if writer:
+        writer.close()
+    if progress:
+        print(timer.report())
+        print(f"{stats.frames} frames in {stats.seconds:.2f}s "
+              f"({stats.fps:.1f} fps)"
+              + (" [native host prep]" if pump is not None else ""))
+    if metrics_json:
+        # Per-run structured metrics (SURVEY.md section 5: per-run JSON).
+        with open(metrics_json, "w") as f:
+            json.dump({
+                "mode": mode, "frames": stats.frames,
+                "seconds": round(stats.seconds, 4),
+                "fps": round(stats.fps, 3),
+                "resolution": [cfg.ydim, cfg.xdim],
+                "native_host_prep": pump is not None,
+                "gray_upload": gray_in,
+                "output_download": need_frames,
+                "stages_s": {k: round(v, 4)
+                             for k, v in sorted(timer.totals.items())},
+                "device": (torch.cuda.get_device_name(dev) if cuda
+                           else str(dev)),
+            }, f)
+            f.write("\n")
+    return stats
