@@ -160,6 +160,7 @@ kernels.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -942,13 +943,14 @@ def check_tiles_new_paths(device):
     return out
 
 
-def device_events(fn, cpu=False, tries=3) -> list:
+def device_events(fn, cpu=False, tries=3, chrome_trace=None) -> list:
     """The CUDA events of one torch.profiler session around fn(), which
     ends in a device sync (with `cpu`, the session records host
     activity too). A session that records no device event at all lost
     its records (torch.profiler on the card does, now and then): it is
     repeated, fn run again, at most tries - 1 times, and the script says
-    so; the last session's events are returned."""
+    so; the last session's events are returned. With `chrome_trace` (a
+    path), that session's Chrome trace is written there too."""
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     if not torch.cuda.is_available():
         tries = 1                           # no device events to wait for
@@ -963,12 +965,18 @@ def device_events(fn, cpu=False, tries=3) -> list:
             print(f"    torch.profiler recorded no device event in a "
                   f"session; profiling it again ({i + 2} of {tries})",
                   flush=True)
+    if chrome_trace is not None:
+        prof.export_chrome_trace(str(chrome_trace))
     return events
 
 
-def k8_kernels_per_call(device):
-    """Device kernels one K8 call launches in each layout (torch.profiler
-    records of one call after a warm one): {layout: [kernel names]}."""
+def k8_kernels_per_call(device, reps=20):
+    """Device kernels one K8 call launches in each layout: the
+    torch.profiler records of `reps` calls in one session after a warm
+    call (sessions around a single call came back empty on some hosts),
+    each name listed as many times as it ran per call. Raises when a
+    name's records are not a multiple of `reps` (records were lost, or
+    calls differ). -> {layout: [kernel names]}."""
     g = halo_tiles_inputs(device, 2, None)
     table, flow = frame_tiles_inputs(480, 640, 5, 2, device)
     calls = {"halo": lambda: warp_kernel.warp_tiles(
@@ -979,8 +987,13 @@ def k8_kernels_per_call(device):
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        out[name] = [e.name for e in device_events(
-            lambda: (fn(), torch.cuda.synchronize()))]
+        seen = collections.Counter(e.name for e in device_events(
+            lambda: ([fn() for _ in range(reps)], torch.cuda.synchronize())))
+        if any(n % reps for n in seen.values()):
+            raise AssertionError(f"K8 {name}: {dict(seen)} records of "
+                                 f"{reps} calls")
+        out[name] = [k for k, n in sorted(seen.items())
+                     for _ in range(n // reps)]
     return out
 
 
@@ -2082,29 +2095,10 @@ def memory_video(clips: dict):
         yield written
 
 
-def traced(fn, tries=3):
-    """fn() inside a torch.profiler session of the card, read from its
-    Chrome trace: the device kernels' total ms and the bytes of each
-    device-to-host copy. A session that records no kernel is
-    repeated, as ``device_events`` does. -> (fn's result, trace dict, or
-    None off the card)."""
-    if not torch.cuda.is_available():
-        return fn(), None
-    CLI_TMP.mkdir(parents=True, exist_ok=True)
-    path = CLI_TMP / "trace.json"
-    for i in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            _sync(torch.device("cuda"))
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
-        kern = [e for e in events if e.get("cat") == "kernel"]
-        if kern:
-            break
-        if i + 1 < tries:
-            print(f"    torch.profiler recorded no device kernel in a "
-                  f"session; profiling it again ({i + 2} of {tries})",
-                  flush=True)
+def trace_totals(path) -> dict:
+    """The device kernels' total ms and the bytes of each device-to-host
+    copy in the Chrome trace at `path` (``device_events``)."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
     d2h = []
     for e in events:
         if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", ""):
@@ -2112,14 +2106,16 @@ def traced(fn, tries=3):
                 raise AssertionError(f"a device-to-host copy without its "
                                      f"size in the trace: {e}")
             d2h.append(int(e["args"]["bytes"]))
-    return out, {"device_ms": sum(e["dur"] for e in kern) / 1e3,
-                 "d2h_bytes": d2h}
+    return {"device_ms": sum(e["dur"] for e in events
+                             if e.get("cat") == "kernel") / 1e3,
+            "d2h_bytes": d2h}
 
 
 def cli_run(argv, clips, trace=False):
     """``cli.main(argv + --metrics-json)`` on in-memory video, its printout
-    captured, every launch counter set to 0 just before; with `trace`,
-    inside a profiler session (``traced``). Raises unless it exits 0.
+    captured, every launch counter set to 0 just before; with `trace`
+    on the card, inside a profiler session (``device_events``) whose
+    Chrome trace ``trace_totals`` reads. Raises unless it exits 0.
     -> {"written": {path: (n, H, W, 3) array}, "metrics": the metrics
     JSON or None, "launches", "stdout", "trace": dict or None}."""
     CLI_TMP.mkdir(parents=True, exist_ok=True)
@@ -2134,7 +2130,14 @@ def cli_run(argv, clips, trace=False):
         return rc, launch_counts()
 
     with memory_video(clips) as written:
-        (rc, launches), trace = traced(call) if trace else (call(), None)
+        if trace and torch.cuda.is_available():
+            path, got = CLI_TMP / "trace.json", []
+            device_events(lambda: (got.append(call()),
+                                   _sync(torch.device("cuda"))),
+                          chrome_trace=path)
+            (rc, launches), trace = got[-1], trace_totals(path)
+        else:
+            (rc, launches), trace = call(), None
     if rc != 0:
         raise AssertionError(f"cli.main({argv}) exited {rc}:\n"
                              f"{out.getvalue()[-2000:]}")
@@ -2236,9 +2239,10 @@ def _ms_per_frame(timed) -> dict:
 def _summary(run, traced_run=None) -> dict:
     """What [13] prints of a CLI run: fps, seconds and stage seconds from
     its metrics, the seconds outside every stage (mostly the loop waiting
-    for decode or the pump); device ms, busy share (device ms over the
-    untraced run's seconds) and device-to-host bytes a frame from
-    `traced_run`'s trace."""
+    for decode or the pump); device ms, busy share and device-to-host
+    bytes a frame of `traced_run`, each from that run's own trace and
+    metrics (the busy share is its device ms over its own seconds, the
+    profiler's cost included)."""
     m = run["metrics"]
     res = {"fps": m["fps"], "seconds": m["seconds"],
            "stages_s": m["stages_s"],
@@ -2246,9 +2250,11 @@ def _summary(run, traced_run=None) -> dict:
                                      sum(m["stages_s"].values()), 4)}
     t = (traced_run or {}).get("trace")
     if t is not None:
+        tm = traced_run["metrics"]
         res.update(device_ms=round(t["device_ms"], 3),
-                   busy_share=round(t["device_ms"] / 1e3 / m["seconds"], 4),
-                   d2h_bytes_per_frame=sum(t["d2h_bytes"]) / m["frames"])
+                   traced_seconds=tm["seconds"],
+                   busy_share=round(t["device_ms"] / 1e3 / tm["seconds"], 4),
+                   d2h_bytes_per_frame=sum(t["d2h_bytes"]) / tm["frames"])
     return res
 
 

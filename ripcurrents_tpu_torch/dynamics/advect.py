@@ -43,10 +43,9 @@ class StreamlineResult(NamedTuple):
 
 
 def streamlines(pts0: torch.Tensor, flow: torch.Tensor, dt: float,
-                iterations: int, upper=math.inf,
-                speed_cap: "float | None" = None) -> StreamlineResult:
+                iterations: int, upper=math.inf) -> StreamlineResult:
     """Euler-advect (N, 2) seeds; each stops out of bounds or when
-    |delta| > upper (or > speed_cap: streamline_2's fixed `r > 5` stop).
+    |delta| > upper.
     The sticky `active` flag stays on the device: no step waits for it."""
     pt = pts0.to(torch.float32)
     active = torch.ones(pt.shape[0], dtype=torch.bool, device=pt.device)
@@ -55,8 +54,6 @@ def streamlines(pts0: torch.Tensor, flow: torch.Tensor, dt: float,
         d, valid = sample_flow(flow, pt[:, 0], pt[:, 1])
         r = torch.sqrt(torch.sum(d * d, dim=-1))
         active = active & valid & (r <= upper)
-        if speed_cap is not None:
-            active = active & (r <= speed_cap)
         pt = torch.where(active[:, None], pt + d * dt, pt)
         pts.append(pt)
         oks.append(active)
@@ -65,11 +62,10 @@ def streamlines(pts0: torch.Tensor, flow: torch.Tensor, dt: float,
 
 
 def streamline(pt0: torch.Tensor, flow: torch.Tensor, dt: float,
-               iterations: int, upper=math.inf,
-               speed_cap: "float | None" = None) -> StreamlineResult:
+               iterations: int, upper=math.inf) -> StreamlineResult:
     """:func:`streamlines` of one (2,) seed: points (iters+1, 2), final
     (2,), seg_valid (iters,)."""
-    res = streamlines(pt0[None], flow, dt, iterations, upper, speed_cap)
+    res = streamlines(pt0[None], flow, dt, iterations, upper)
     return StreamlineResult(*(t[0] for t in res))
 
 

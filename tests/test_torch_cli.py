@@ -144,12 +144,6 @@ def test_validate_streamline_matches_jax(capsys):
         STREAMLINE_PX
     np.testing.assert_array_equal(res.seg_valid.numpy(),
                                   np.asarray(jres.seg_valid))
-    capped = advect.streamline(torch.tensor([200.0, 200.0]), flow, dt=0.03,
-                               iterations=50, speed_cap=5.0)
-    jcapped = jadvect.streamline(jnp.array([200.0, 200.0]), jflow, dt=0.03,
-                                 iterations=50, speed_cap=5.0)
-    np.testing.assert_array_equal(capped.seg_valid.numpy(),
-                                  np.asarray(jcapped.seg_valid))
     assert cli.main(["in.mp4", "--mode", "validate", "--device", "cpu"]) == 0
     assert "drift=" in capsys.readouterr().out
 
