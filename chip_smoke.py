@@ -943,14 +943,16 @@ def check_tiles_new_paths(device):
     return out
 
 
-def device_events(fn, cpu=False, tries=3, chrome_trace=None) -> list:
+def device_events(fn, cpu=False, tries=3, chrome_trace=None,
+                  complete=None) -> list:
     """The CUDA events of one torch.profiler session around fn(), which
     ends in a device sync (with `cpu`, the session records host
-    activity too). A session that records no device event at all lost
-    its records (torch.profiler on the card does, now and then): it is
-    repeated, fn run again, at most tries - 1 times, and the script says
-    so; the last session's events are returned. With `chrome_trace` (a
-    path), that session's Chrome trace is written there too."""
+    activity too). A session that records no device event at all, or
+    whose events `complete` (a predicate on them) rejects, lost records
+    (torch.profiler on the card does, now and then): it is repeated, fn
+    run again, at most tries - 1 times, and the script says so; the last
+    session's events are returned. With `chrome_trace` (a path), that
+    session's Chrome trace is written there too."""
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     if not torch.cuda.is_available():
         tries = 1                           # no device events to wait for
@@ -959,12 +961,13 @@ def device_events(fn, cpu=False, tries=3, chrome_trace=None) -> list:
             fn()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if events:
+        if events and (complete is None or complete(events)):
             break
         if i + 1 < tries:
-            print(f"    torch.profiler recorded no device event in a "
-                  f"session; profiling it again ({i + 2} of {tries})",
-                  flush=True)
+            what = "no device event" if not events else \
+                "device events that disagree with the launch counters"
+            print(f"    torch.profiler recorded {what} in a session; "
+                  f"profiling it again ({i + 2} of {tries})", flush=True)
     if chrome_trace is not None:
         prof.export_chrome_trace(str(chrome_trace))
     return events
@@ -974,22 +977,30 @@ def k8_kernels_per_call(device, reps=20):
     """Device kernels one K8 call launches in each layout: the
     torch.profiler records of `reps` calls in one session after a warm
     call (sessions around a single call came back empty on some hosts),
-    each name listed as many times as it ran per call. Raises when a
-    name's records are not a multiple of `reps` (records were lost, or
-    calls differ). -> {layout: [kernel names]}."""
+    each name listed as many times as it ran per call. A session in
+    which a name's records are not a multiple of `reps` is profiled
+    again (``device_events``); raises when the last one's are not
+    either (records were lost, or calls differ). -> {layout: [kernel
+    names]}."""
     g = halo_tiles_inputs(device, 2, None)
     table, flow = frame_tiles_inputs(480, 640, 5, 2, device)
     calls = {"halo": lambda: warp_kernel.warp_tiles(
                  g["table"], g["flow"], g["counts"], g["th"], g["sw"], 2),
              "frame": lambda: warp_kernel.warp_tiles(table, flow, None, 64,
                                                      256, 2)}
+
+    def whole(events):
+        return not any(n % reps for n in collections.Counter(
+            e.name for e in events).values())
     out = {}
     for name, fn in calls.items():
         fn()
         torch.cuda.synchronize()
-        seen = collections.Counter(e.name for e in device_events(
-            lambda: ([fn() for _ in range(reps)], torch.cuda.synchronize())))
-        if any(n % reps for n in seen.values()):
+        events = device_events(
+            lambda: ([fn() for _ in range(reps)], torch.cuda.synchronize()),
+            complete=whole)
+        seen = collections.Counter(e.name for e in events)
+        if not whole(events):
             raise AssertionError(f"K8 {name}: {dict(seen)} records of "
                                  f"{reps} calls")
         out[name] = [k for k, n in sorted(seen.items())
@@ -1000,23 +1011,35 @@ def k8_kernels_per_call(device, reps=20):
 def k8_kernels_per_frame(device, h=480, w=640):
     """K8's device kernels in one frame of the tiled engine at (h, w): the
     torch.profiler records (after a warm frame) whose name holds
-    "warp_tiles" or "tile_sums", and the wrapper's launches."""
+    "warp_tiles" or "tile_sums", and the wrapper's launches. The session
+    opens with a few small kernels and a sync, so that the frame's
+    kernels are not the first it sees; a session whose K8 records differ
+    from its launches lost records and is profiled again
+    (``device_events``). -> the last session's counts."""
     f = moving_frames(2, h, w, device, color=False)
     e0, e1 = (fb.farneback_precompute(f[i], TILED_PRESET) for i in (0, 1))
     step = lambda: fb.farneback_from_expansions(  # noqa: E731
         e0, e1, (h, w), TILED_PRESET)
     step()
     torch.cuda.synchronize()
-    before = [0]
+    lead = torch.zeros(1024, device=device)
+    calls = [0]
 
     def traced():
-        before[0] = warp_kernel.warp_tiles.launches
+        for _ in range(4):
+            lead.add_(1)
+        torch.cuda.synchronize()
+        before = warp_kernel.warp_tiles.launches
         step()
         torch.cuda.synchronize()
-    names = [e.name for e in device_events(traced)
-             if "warp_tiles" in e.name or "tile_sums" in e.name]
-    return {"device_kernels": len(names),
-            "calls": warp_kernel.warp_tiles.launches - before[0]}
+        calls[0] = warp_kernel.warp_tiles.launches - before
+
+    def k8(events):
+        return [e.name for e in events
+                if "warp_tiles" in e.name or "tile_sums" in e.name]
+    names = k8(device_events(
+        traced, complete=lambda ev: len(k8(ev)) == calls[0]))
+    return {"device_kernels": len(names), "calls": calls[0]}
 
 
 # ---------------------------------------------------------------------------
