@@ -9,10 +9,13 @@ the JAX package's CLI, plus `--device`:
     python -m ripcurrents_tpu_torch beach.mp4 out --mode timelines
 
 Everything runs on the CUDA card unless `--device cpu` is given; without
-a card the default exits with an error instead of falling back. The
-multi-stream and multi-host flags (`--videos`, `--mesh-space`,
-`--coordinator`, `--num-processes`, `--process-id`) parse, but the port
-does not run them yet: using one exits 2 before any work starts.
+a card the default exits with an error instead of falling back.
+`--videos a b ...` runs N streams in lock-step on the process's card
+(``pipelines/multirunner.py``); `--coordinator HOST:PORT --num-processes
+N --process-id I` makes each of N processes one member of a stream farm
+(``parallel/distributed.py``, a gloo process group), each running its
+own videos. `--mesh-space K > 1` (rows of a whole mode step over K cards)
+exits 2.
 """
 
 from __future__ import annotations
@@ -38,10 +41,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="output file stem (reference: outputFileName)")
     p.add_argument("--videos", nargs="+", default=None, metavar="VIDEO",
                    help="N input videos processed in lock-step as "
-                        "independent streams (not ported yet: exits 2)")
+                        "independent streams on this process's card (one "
+                        "output per stream: <stem>_s<i>.mp4). With "
+                        "--videos a positional (given BEFORE --videos or "
+                        "after '--') names the output stem instead.")
     p.add_argument("--mesh-space", type=int, default=1, metavar="K",
                    help="with --videos: additionally shard frame rows "
-                        "over K devices (not ported yet: exits 2)")
+                        "over K devices (K > 1 is not ported: exits 2)")
     p.add_argument("--mode", default="timelines",
                    choices=sorted(set(MODES) | set(SPECIAL_MODES)),
                    help="pipeline mode (reference default: timelines)")
@@ -121,9 +127,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(flow/akaze_tpu.py)")
 
     d = p.add_argument_group(
-        "multi-host stream farm (not ported yet: using one exits 2)")
+        "multi-host stream farm (parallel/distributed.py): every process "
+        "runs the same command with its own videos; only aggregate "
+        "metrics cross processes")
     d.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="distributed coordinator address")
+                   help="address process 0 serves the farm's gloo "
+                        "rendezvous on")
     d.add_argument("--num-processes", type=int, default=None)
     d.add_argument("--process-id", type=int, default=None)
     return p
@@ -368,18 +377,15 @@ def _refuse(args) -> "str | None":
     """Why this command cannot run (before any work starts), or None."""
     if args.videos and args.mode in SPECIAL_MODES:
         return f"--videos cannot be combined with --mode {args.mode}"
-    used = [flag for flag, on in (
-        ("--videos", args.videos is not None),
-        ("--mesh-space", args.mesh_space != 1),
-        ("--coordinator", args.coordinator is not None),
-        ("--num-processes", args.num_processes is not None),
-        ("--process-id", args.process_id is not None)) if on]
-    if used:
-        return (f"{', '.join(used)}: the multi-stream runner and the "
-                f"multi-device layer are not ported yet (ROADMAP.md, queue "
-                f"1, items 4-5)")
-    if not args.video:
+    if not args.videos and not args.video:
         return "an input video is required (positional or --videos)"
+    if args.mesh_space != 1:
+        from ripcurrents_tpu_torch.pipelines.multirunner import _stream_mesh
+        try:
+            _stream_mesh(len(args.videos or ()) or 1, args.mesh_space,
+                         world=1, ydim=args.ydim)
+        except ValueError as e:
+            return str(e)
     return None
 
 
@@ -395,6 +401,16 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"error: {e} (use --device cpu)", file=sys.stderr)
         return 2
+    if args.coordinator or (args.num_processes or 0) > 1:
+        # Join the farm before any work; each process then runs its own
+        # videos.
+        from ripcurrents_tpu_torch.parallel.distributed import init_cluster
+        try:
+            init_cluster(args.coordinator, args.num_processes,
+                         args.process_id)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     if args.mode == "stabilize":
         _stabilize_akaze(args)
         return 0
@@ -410,8 +426,21 @@ def main(argv=None) -> int:
         _legacy_full(args, device)
         return 0
 
-    from ripcurrents_tpu_torch.pipelines.runner import run_video
     cfg = _mode_config(args)
+    if args.videos:
+        # N streams in lock-step on this card (pipelines/multirunner.py).
+        # The positional slot, if filled, names the output stem (the input
+        # role is taken).
+        from ripcurrents_tpu_torch.pipelines.multirunner import run_videos
+        stem = args.video if args.video is not None else args.output
+        run_videos(args.mode, args.videos,
+                   None if args.no_output else stem, cfg,
+                   chunk=args.chunk, max_frames=args.max_frames,
+                   space=args.mesh_space, metrics_json=args.metrics_json,
+                   host_prep=not args.no_host_prep, device=device)
+        return 0
+
+    from ripcurrents_tpu_torch.pipelines.runner import run_video
     out = None if args.no_output else f"{args.output}.mp4"
     frame_skip = 3 if args.mode == "android" else 1
     max_frames = args.max_frames

@@ -733,9 +733,11 @@ def farneback_stream_chunk(prev_exp, frames: torch.Tensor,
 
 
 def _stack(items: list):
-    """torch.stack over a list of like trees of tensors (tensors, tuples,
-    named tuples, lists, dicts)."""
+    """torch.stack over a list of like trees of tensors (tensors, None,
+    tuples, named tuples, lists, dicts)."""
     first = items[0]
+    if first is None:
+        return None
     if isinstance(first, torch.Tensor):
         return torch.stack(items)
     if isinstance(first, dict):

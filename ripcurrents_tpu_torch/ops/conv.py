@@ -1,6 +1,8 @@
-"""Gaussian kernels and separable correlation with OpenCV border
-semantics (port of the functions of ``ripcurrents_tpu/ops/conv.py`` that
-the legacy path and the LK pyramid need)."""
+"""Gaussian kernels, separable correlation and blurs with OpenCV border
+semantics (port of ``ripcurrents_tpu/ops/conv.py``). The filters take
+(H, W) images; ``gaussian_blur``, ``box_blur``, ``pyr_down`` and
+``pad2d`` also take (H, W, C), spatial dims leading, as the JAX
+functions do."""
 
 from __future__ import annotations
 
@@ -60,3 +62,49 @@ def sep_filter2d(img: torch.Tensor, ky, kx,
     x = F.pad(x, (rx, rx, ry, ry), mode=_PAD_MODE[border])
     x = _corr1d(_corr1d(x, ky, 2), kx, 3)
     return x.reshape(img.shape)
+
+
+def pad2d(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
+          border: str) -> torch.Tensor:
+    """Pad the two leading spatial dims of (H, W[, C]). border:
+    'replicate' | 'reflect101' | 'constant' (zeros)."""
+    if border == "constant":
+        out = img.new_zeros((img.shape[0] + top + bottom,
+                             img.shape[1] + left + right) +
+                            tuple(img.shape[2:]))
+        out[top:top + img.shape[0], left:left + img.shape[1]] = img
+        return out
+    mode = {"replicate": "edge", "reflect101": "reflect"}[border]
+    for dim, pads in ((0, (top, bottom)), (1, (left, right))):
+        idx = np.pad(np.arange(img.shape[dim]), pads, mode=mode)
+        img = img.index_select(dim, torch.from_numpy(idx).to(img.device))
+    return img
+
+
+def _filter_hwc(img: torch.Tensor, ky, kx, border: str) -> torch.Tensor:
+    """``sep_filter2d`` of an (H, W) or (H, W, C) image."""
+    if img.ndim == 2:
+        return sep_filter2d(img, ky, kx, border)
+    return sep_filter2d(img.movedim(-1, 0), ky, kx, border).movedim(0, -1)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int, sigma: float,
+                  border: str = "reflect101") -> torch.Tensor:
+    """cv2.GaussianBlur(img, (ksize, ksize), sigma) with default border."""
+    k = gaussian_kernel(ksize, sigma)
+    return _filter_hwc(img, k, k, border)
+
+
+def box_blur(img: torch.Tensor, ksize: int, border: str = "replicate",
+             normalize: bool = True) -> torch.Tensor:
+    """ksize x ksize box filter (cv2.blur semantics with replicate
+    border)."""
+    k = np.full((ksize,), 1.0 / ksize if normalize else 1.0)
+    return _filter_hwc(img, k, k, border)
+
+
+def pyr_down(img: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown: blur with [1,4,6,4,1]/16 (reflect101), then take the
+    even pixels. Output size is ((H+1)//2, (W+1)//2), as in OpenCV."""
+    k = np.array([1, 4, 6, 4, 1], np.float64) / 16.0
+    return _filter_hwc(img, k, k, "reflect101")[::2, ::2]

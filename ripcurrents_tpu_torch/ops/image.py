@@ -28,6 +28,11 @@ def bgr_to_gray(img: torch.Tensor) -> torch.Tensor:
     return ((acc + (1 << 13)) >> 14).to(torch.uint8)
 
 
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """RGB variant of :func:`bgr_to_gray`."""
+    return bgr_to_gray(img.flip(-1))
+
+
 @functools.lru_cache(maxsize=64)
 def _linear_weights(src: int, dst: int) -> tuple[np.ndarray, np.ndarray]:
     """Per-output-pixel source indices + bilinear weights for one axis
@@ -121,6 +126,16 @@ def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     """cv2.resize(..., INTER_AREA): the reference's first-frame preload."""
     return _resize(img, out_hw, "area")
+
+
+def resize_bilinear_cf(img: torch.Tensor,
+                       out_hw: tuple[int, int]) -> torch.Tensor:
+    """INTER_LINEAR resize of a channels-first (C, H, W) array as two
+    matmuls, float32 out."""
+    my = _axis_matrix(img.shape[1], out_hw[0], "linear", img.device)
+    mx = _axis_matrix(img.shape[2], out_hw[1], "linear", img.device)
+    t = torch.einsum("sd,csw->cdw", my, img.to(torch.float32))
+    return torch.einsum("sw,cds->cdw", mx, t)
 
 
 @functools.lru_cache(maxsize=64)

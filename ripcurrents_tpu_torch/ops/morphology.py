@@ -1,5 +1,5 @@
-"""Binary morphology as max/min stencils (port of the legacy-path functions
-of ``ripcurrents_tpu/ops/morphology.py``; create_edges,
+"""Binary/grayscale morphology as max/min stencils (port of
+``ripcurrents_tpu/ops/morphology.py``; create_edges,
 ripcurrents_module.cpp:216-220)."""
 
 from __future__ import annotations
@@ -31,12 +31,15 @@ def ellipse_kernel(h: int, w: int) -> np.ndarray:
 
 
 def _morph(img: torch.Tensor, kernel: np.ndarray, op: str) -> torch.Tensor:
-    """Dilate ('max') or erode ('min') a uint8 (H, W) image by a flat
-    structuring element; outside the image counts as 0 for dilation and
-    255 for erosion."""
+    """Dilate ('max') or erode ('min') an (H, W) image by a flat
+    structuring element; outside the image counts as the dtype's least
+    value for dilation and its greatest for erosion (0 / 255 for uint8,
+    -inf / inf for floats)."""
     kh, kw = kernel.shape
     ry, rx = kh // 2, kw // 2
-    pad_val = 0 if op == "max" else 255
+    lo, hi = (0, 255) if img.dtype == torch.uint8 else \
+        (-float("inf"), float("inf"))
+    pad_val = lo if op == "max" else hi
     x = F.pad(img[None], (rx, rx, ry, ry), value=pad_val)[0]
     h, w = img.shape
     acc = None
@@ -53,9 +56,21 @@ def _morph(img: torch.Tensor, kernel: np.ndarray, op: str) -> torch.Tensor:
     return acc
 
 
+def dilate(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    return _morph(img, kernel, "max")
+
+
+def erode(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    return _morph(img, kernel, "min")
+
+
+def morph_gradient(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """cv2.morphologyEx op #4: dilation - erosion."""
+    return dilate(img, kernel) - erode(img, kernel)
+
+
 def rip_edges(mask_u8: torch.Tensor) -> torch.Tensor:
     """create_edges: dilate with a 5x5 ellipse, then the morphological
     gradient (dilation - erosion) with the same element."""
     k = ellipse_kernel(5, 5)
-    d = _morph(mask_u8, k, "max")
-    return _morph(d, k, "max") - _morph(d, k, "min")
+    return morph_gradient(dilate(mask_u8, k), k)

@@ -254,6 +254,29 @@ def _device_prefetch(gen, timer, device: torch.device, depth: int = 1):
     yield from buf
 
 
+def _open_source(mode: str, frames_iter, first: np.ndarray, cfg: ModeConfig,
+                 video_in: str, chunk: int, max_frames: Optional[int],
+                 frame_skip: int, host_prep: bool):
+    """One stream's chunk source (``_chunk_source``) after its first
+    frame: the frame pump when `host_prep` and the source is a file not
+    at the target size (and the pump builds); gray chunks for gray-input
+    modes where the host can make them (the pump's, frames at the target
+    size, or cv2 resizing others; else the mode's own device prep does it
+    from BGR). -> (source, pump or None, gray_in)."""
+    target = (cfg.ydim, cfg.xdim)
+    pump = None
+    if host_prep and video_in != "-" and first.shape[:2] != target and \
+            io_native.available():
+        pump = io_native.FramePump(first.shape[:2], target, threads=2,
+                                   capacity=4 * chunk)
+    gray_in = mode in GRAY_INPUT and (pump is not None or
+                                      first.shape[:2] == target or
+                                      _have_cv2())
+    source = _chunk_source(frames_iter, chunk, frame_skip, max_frames,
+                           pump, gray_hw=target if gray_in else None)
+    return source, pump, gray_in
+
+
 def _download(outs: list, ready, side) -> "tuple[np.ndarray, object]":
     """Stack a chunk's output frames on the device and copy them into
     pinned host memory, on the `side` stream after the `ready` event
@@ -270,6 +293,72 @@ def _download(outs: list, ready, side) -> "tuple[np.ndarray, object]":
         done = torch.cuda.Event()
         done.record(side)
     return host.numpy(), done
+
+
+def _run_chunks(feeds: list, states: list, step, device: torch.device,
+                timer, need_frames: bool, on_chunk) -> list:
+    """The chunk pipeline of ``run_video`` (one stream) and ``run_videos``
+    (N streams): steps the streams' uploaded chunks (one
+    ``_device_prefetch`` feed each) in lock-step, each stream's frame k
+    before any stream's frame k + 1, and calls on_chunk(hosts, states, t)
+    for each chunk once the card is done with it: hosts = each stream's
+    (t, ...) output frames in host memory (downloaded on a side stream),
+    or None when not `need_frames` (nothing is downloaded); states = the
+    streams' states after the chunk. A chunk's download and on_chunk
+    overlap the device's work on the next chunk. Stops when a feed ends;
+    a chunk shorter than another stream's (that stream is ending) is the
+    last. -> the streams' last states, after the card has finished."""
+    cuda = device.type == "cuda"
+    side = torch.cuda.Stream(device) if cuda else None
+
+    def flush(outs, ready, chunk_states):
+        hosts = None
+        with timer.stage("materialize"):
+            if need_frames:
+                got = [_download(o, ready, side) for o in outs]
+                for _, done in got:
+                    if done is not None:
+                        done.synchronize()
+                hosts = [host for host, _ in got]
+            elif ready is not None:
+                ready.synchronize()
+        on_chunk(hosts, chunk_states, len(outs[0]))
+
+    states = list(states)
+    pending = None
+    while True:
+        chunks = [next(feed, None) for feed in feeds]
+        if any(c is None for c in chunks):
+            break
+        t = min(c[0].shape[0] for c in chunks)
+        with timer.stage("dispatch"):
+            ready = None
+            if cuda:
+                cur = torch.cuda.current_stream(device)
+                for frames, uploaded, _ in chunks:
+                    cur.wait_event(uploaded)
+                    # the chunk was allocated on the side stream
+                    frames.record_stream(cur)
+            outs = [[] for _ in chunks]
+            for k in range(t):
+                for i, (frames, _, _) in enumerate(chunks):
+                    states[i], out = step(states[i], frames[k])
+                    outs[i].append(out)
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+        if pending is not None:
+            flush(*pending[:3])  # overlaps the device's work on this chunk
+        # The pinned uploads (the chunks' third items) live in `pending`
+        # until flush has waited on `ready`, which follows their copies.
+        pending = (outs, ready, list(states), chunks)
+        if any(c[0].shape[0] > t for c in chunks):
+            break                # a stream is ending
+    if pending is not None:
+        flush(*pending[:3])
+    if cuda:
+        torch.cuda.synchronize(device)
+    return states
 
 
 def run_video(mode: str, video_in: str, video_out: Optional[str],
@@ -336,19 +425,9 @@ def run_video(mode: str, video_in: str, video_out: Optional[str],
             print(f"resumed at frame {frames_done} from {resume}",
                   flush=True)
 
-    target = (cfg.ydim, cfg.xdim)
-    pump = None
-    if host_prep and video_in != "-" and first.shape[:2] != target and \
-            io_native.available():
-        pump = io_native.FramePump(first.shape[:2], target, threads=2,
-                                   capacity=4 * chunk)
-    # Gray-input modes upload gray frames: the pump's, or the host's
-    # BGR2GRAY of frames at the target size (cv2 resizes others first;
-    # without cv2 the mode's own device prep does it from BGR).
-    gray_in = mode in GRAY_INPUT and (pump is not None or
-                                      first.shape[:2] == target or
-                                      _have_cv2())
-
+    source, pump, gray_in = _open_source(mode, frames_iter, first, cfg,
+                                         video_in, chunk, max_frames,
+                                         frame_skip, host_prep)
     last_ckpt = 0
     # cv2.imshow on a displayless host aborts the process inside Qt (not a
     # catchable Python exception), so gate on $DISPLAY up front.
@@ -360,34 +439,25 @@ def run_video(mode: str, video_in: str, video_out: Optional[str],
     # skip the download and wait on an event of each chunk's last output.
     need_frames = bool(video_out) or (preview and _preview_ok)
     cuda = dev.type == "cuda"
-    side = torch.cuda.Stream(dev) if cuda else None
 
-    def flush(pending):
+    def on_chunk(hosts, chunk_states, t):
         nonlocal last_ckpt, writer
-        outs, ready, chunk_state, _ = pending
-        with timer.stage("materialize"):
-            if need_frames:
-                host, done = _download(outs, ready, side)
-                if done is not None:
-                    done.synchronize()
-            elif ready is not None:
-                ready.synchronize()
         with timer.stage("encode"):
             if video_out:
                 if writer is None:
                     writer = io_video.VideoWriter(video_out, reader.fps,
-                                                  host.shape[1:3])
-                writer.write_batch(host)
+                                                  hosts[0].shape[1:3])
+                writer.write_batch(hosts[0])
         if preview and _preview_ok:
             # the reference's imshow windows (e.g. main.cpp:502); shows the
             # last frame of each chunk to keep up with device rate
             import cv2
-            cv2.imshow(mode, host[-1])
+            cv2.imshow(mode, hosts[0][-1])
             cv2.waitKey(1)
-        stats.frames += len(outs)
+        stats.frames += t
         if (checkpoint_every and checkpoint_path and
                 stats.frames - last_ckpt >= checkpoint_every):
-            save_state(checkpoint_path, chunk_state,
+            save_state(checkpoint_path, chunk_states[0],
                        {"processed": frames_done + stats.frames,
                         "mode": mode})
             last_ckpt = stats.frames
@@ -395,38 +465,13 @@ def run_video(mode: str, video_in: str, video_out: Optional[str],
             print(f"frames processed: {stats.frames}", flush=True)
 
     t0 = time.perf_counter()
-    pending = None
-    source = _chunk_source(frames_iter, chunk, frame_skip, max_frames,
-                           pump, gray_hw=target if gray_in else None)
     try:
-        for frames, uploaded, host_in in _device_prefetch(source, timer,
-                                                          dev):
-            with timer.stage("dispatch"):
-                if uploaded is not None:
-                    cur = torch.cuda.current_stream(dev)
-                    cur.wait_event(uploaded)
-                    # the chunk was allocated on the side stream
-                    frames.record_stream(cur)
-                outs = []
-                for t in range(frames.shape[0]):
-                    state, out = step(state, frames[t])
-                    outs.append(out)
-                ready = None
-                if cuda:
-                    ready = torch.cuda.Event()
-                    ready.record()
-            if pending is not None:
-                flush(pending)  # overlaps the device's work on this chunk
-            # The pinned upload (host_in) lives in `pending` until flush
-            # has waited on `ready`, which follows its copy's event.
-            pending = (outs, ready, state, host_in)
-        if pending is not None:
-            flush(pending)
+        state, = _run_chunks([_device_prefetch(source, timer, dev)],
+                             [state], step, dev, timer, need_frames,
+                             on_chunk)
     finally:
         source.close()      # stops the producer before the reader goes
         reader.close()
-    if cuda:
-        torch.cuda.synchronize(dev)
     stats.seconds = time.perf_counter() - t0
     stats.state = state
     if writer:

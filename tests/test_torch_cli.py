@@ -91,7 +91,7 @@ def test_parser_and_mode_config_match_jax(capsys):
     """The port's parser has JAX's flags, names, defaults and choices, plus
     --device; _mode_config gives equal fields; --warp-residual clears
     warp_residual_hires in both fb_presets; --videos with a special mode,
-    the flags the port does not run yet, and no input all exit 2."""
+    no input, and --mesh-space 2 on a world of one card all exit 2."""
     mine, theirs = _actions(cli.build_parser()), _actions(jcli.build_parser())
     assert mine.pop("device") == (("--device",), "cuda", ["cuda", "cpu"],
                                   None, None, None)
@@ -116,15 +116,13 @@ def test_parser_and_mode_config_match_jax(capsys):
                     p.warp_subcol, p.warp_impl) == (3, None, 128, "tiled")
             assert dataclasses.asdict(p) == dataclasses.asdict(jp)
     for argv in (["in.mp4", "--videos", "a.mp4", "--mode", "validate"],
-                 ["in.mp4", "--videos", "a.mp4", "b.mp4"],
-                 ["in.mp4", "--mesh-space", "2"],
-                 ["in.mp4", "--coordinator", "localhost:1234"],
-                 ["in.mp4", "--num-processes", "2"],
-                 ["in.mp4", "--process-id", "0"], []):
+                 ["in.mp4", "--videos", "a.mp4", "b.mp4", "--mesh-space",
+                  "2"], []):
         assert cli.main([*argv, "--device", "cpu"]) == 2
     err = capsys.readouterr().err
     assert "--videos cannot be combined with --mode validate" in err
-    assert "ROADMAP.md, queue 1, items 4-5" in err
+    assert "an input video is required" in err
+    assert "--mesh-space 2 needs 1 <= K <= the 1 device(s)" in err
 
 
 def test_validate_streamline_matches_jax(capsys):

@@ -175,4 +175,6 @@ def test_port_imports_no_jax():
     assert {f"ripcurrents_tpu_torch.{m}" for m in (
         "flow.prep_kernel", "flow.warp_kernel", "analysis.meanflow",
         "analysis.shear", "viz.color", "viz.draw", "pipelines.modes",
-        "convert", "trace_legacy", "bench_warp")} <= mods
+        "convert", "trace_legacy", "bench_warp", "parallel.mesh",
+        "parallel.spatial", "parallel.distributed",
+        "pipelines.multirunner")} <= mods
