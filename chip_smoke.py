@@ -155,13 +155,27 @@ Every phase passes or raises (the script catches nothing):
    producer thread left and the metrics written; (b) ``farneback_spatial``
    on a 1920x1080 pair, halo 128, on 2 ranks sharing the card
    (torch.multiprocessing spawn, a file:// store, a gloo 'space' group,
-   the kernels built here first): the tiled engine (K5, K6, K8) held to
-   ``SPATIAL_BOUNDS`` against this process's ``farneback``, the fused
-   engine's (K5, K6, K1, K2, K4) readings printed, each rank's launches,
-   ms a pair and the halo exchange's ms; (c) a stream farm of 2 processes
-   (``cli.main --coordinator 127.0.0.1:<port>``, gloo), 2 legacy clips
-   each: the mesh (stream 2, space 1), each rank's slice, and
-   ``all_streams_fps`` equal to the sum of the two processes' metrics fps.
+   the kernels built here first): the tiled engine (K5, K6, K8) and the
+   fused engine (K5, K6, K1, K2, K4, and K1b: the slabs' bases are the
+   whole frame's) held to ``SPATIAL_BOUNDS`` against this process's
+   ``farneback``, each rank's launches, ms a pair and the halo exchange's
+   ms; (c) a stream farm of 2 processes (``cli.main --coordinator
+   127.0.0.1:<port>``, gloo), 2 legacy clips each: the mesh (stream 2,
+   space 1), each rank's slice, and ``all_streams_fps`` equal to the sum
+   of the two processes' metrics fps;
+15. the space form (``--mesh-space 2``): 2 processes share the card,
+   each ``cli.main --videos <clip> --mesh-space 2`` with the farm's
+   flags (a file:// store; the 'space' group is gloo), on an in-memory
+   clip of 41 1280x720 frames at 640x480: legacy (timed, the counters set
+   to 0 just before; then again recording each band flow, slab height,
+   rip mask band and UPPER) and timelines, against this process's
+   ``run_frames``: timelines bit for bit; legacy's overlays and masks
+   equal on >= 99% of pixels, every frame's flow within
+   ``SPATIAL_BOUNDS``, UPPER equal on both ranks every frame; launches per
+   rank (K5/K6 3, K1/K1b/K2 6, K4 2 a legacy frame; K3 1 a timelines
+   frame) and the slab height band + 2 x halo (368); ms a frame per rank,
+   the exchanges' ms and bytes a frame, beside one process's run of the
+   same clip.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -227,6 +241,21 @@ from ripcurrents_tpu_torch.synthetic import (make_jittered_clip,
                                              make_rip_clip, moving_frames)
 from ripcurrents_tpu_torch.trace_legacy import (launch_counts,
                                                 reset_launches)
+from ripcurrents_tpu_torch.analysis import classify
+from ripcurrents_tpu_torch.ops import hist as histops
+from ripcurrents_tpu_torch.pipelines import legacy as legacy_mod
+
+
+def reset_all_launches() -> None:
+    """Set every launch counter to 0: the eight kernels' and K1b's
+    (``fused_update.farneback_block_sums``, the slabs' base sums)."""
+    reset_launches()
+    fu.farneback_block_sums.launches = 0
+
+
+def all_launch_counts() -> dict:
+    """{"K1": n, ..., "K8": n, "K1b": n} since ``reset_all_launches``."""
+    return {**launch_counts(), "K1b": fu.farneback_block_sums.launches}
 from ripcurrents_tpu_torch.utils.checkpoint import load_meta
 
 # H100 SXM published peaks: HBM bytes/s and
@@ -413,14 +442,15 @@ def _bres(p: FarnebackParams, h, w):
     return wr[0] if isinstance(wr, tuple) else wr
 
 
-def check_update(prep, flow, bres):
-    """K1 against its plain version on one level's inputs. Returns |d|,
-    the share of elements that differ and the plain M; raises past
-    K1_REL / K1_FRAC."""
-    m = fu.farneback_update(prep, flow, bres)
+def check_update(prep, flow, bres, sums=None):
+    """K1 against its plain version on one level's inputs (its row offset
+    prep["roff"]; given base sums `sums`, if any). Returns |d|, the share
+    of elements that differ and the plain M; raises past K1_REL /
+    K1_FRAC."""
+    m = fu.farneback_update(prep, flow, bres, sums)
     m_plain = fu.farneback_update_plain(
         prep["p0"], prep["p1"], flow, prep["counts"], prep["hw"],
-        prep["th"], prep["sw"], bres)
+        prep["th"], prep["sw"], bres, prep["roff"], sums)
     a, b = m.float(), m_plain.float()
     d = (a - b).abs()
     frac = (d > 0).float().mean().item()
@@ -464,6 +494,57 @@ def check_kernels(h, w, p: FarnebackParams, device, iterations=2):
             "k1_share": frac1, "k2_max": d2.max().item(),
             "k2_mean": d2.mean().item(), "level_max": d3.max().item(),
             "level_mean": d3.mean().item()}
+
+
+# K1b (farneback_block_sums) sums float32 flow in float64 in another
+# order than its plain version: within a few float64 ULPs of the plain
+# sums' magnitudes, and the bases rounded from them equal.
+K1B_REL = 1e-12
+
+
+def slab_update_inputs(device, h=480, w=640, origin=112, hs=368):
+    """K1's inputs at level 0 of the clamped slab [origin, origin + hs) of
+    a 480x640 legacy pair ([15]'s rank 1: row tile 120, row offset 112):
+    the slab's expansions made with its place in the frame and a smooth
+    random flow of up to +-4 px. -> (prep, flow, bres, own rows)."""
+    p = FarnebackParams.legacy()
+    f = moving_frames(2, h, w, device, seed=4, color=False)
+    slab = fb.Slab(origin, h)
+    e0, e1 = (fb.farneback_precompute(x[origin:origin + hs], p,
+                                      slab)[p.levels] for x in f)
+    th, roff = fb._frame_rows(hs, p, 0, slab)
+    prep = fu.prepare_expansions(e0, e1, th, hw=(hs, w),
+                                 subcol=p.warp_subcol, roff=roff)
+    hp, wp = prep["hpwp"]
+    g = torch.Generator().manual_seed(5)
+    coarse = (torch.rand((1, 2, hs // 16 + 2, w // 16 + 2), generator=g)
+              * 2 - 1) * 4.0
+    flow = torch.zeros((2, hp, wp), dtype=torch.float32)
+    flow[:, :hs, :w] = F.interpolate(coarse, size=(hs, w), mode="bilinear",
+                                     align_corners=False)[0]
+    return prep, flow.to(device), _bres(p, h, w), (h // 2 - origin, hs)
+
+
+def check_slab_update(device):
+    """K1 at a non-zero row offset (the slab of ``slab_update_inputs``)
+    against its plain version, alone and with given base sums (the
+    slab's own rows' K1b sums, as the ranks' sums are handed to it); K1b
+    against its plain version. Raises past K1_REL / K1_FRAC and
+    K1B_REL."""
+    prep, flow, bres, own = slab_update_inputs(device)
+    th, sw, roff = prep["th"], prep["sw"], prep["roff"]
+    d1, frac1, _ = check_update(prep, flow, bres)
+    sums = fu.farneback_block_sums(flow, th, sw, roff, own)
+    plain = fu.farneback_block_sums_plain(flow, th, sw, roff, own)
+    rel = float(((sums - plain).abs() / (1 + plain.abs())).max())
+    cnt = prep["counts"].double()
+    if rel > K1B_REL or not torch.equal(torch.round((sums / cnt).float()),
+                                        torch.round((plain / cnt).float())):
+        raise AssertionError(f"K1b disagrees: relative {rel}")
+    d2, frac2, _ = check_update(prep, flow, bres, sums)
+    return {"roff": roff, "th": th, "k1_max": d1.max().item(),
+            "k1_share": frac1, "k1_given_sums_max": d2.max().item(),
+            "k1_given_sums_share": frac2, "k1b_rel": rel}
 
 
 def k1_bytes_ops(hp, wp):
@@ -2454,15 +2535,6 @@ RANK_TIMEOUT_S = 300
 SPATIAL_BOUNDS = {"interior_median_px": 1e-4, "interior_mean_px": 0.01,
                   "interior_share_above_0.1px": 0.01, "border_mean_px": 0.1}
 SPATIAL_EDGE = 64
-# The fused engine's slabs miss SPATIAL_BOUNDS (its row tile follows the
-# slab's height, ROADMAP.md queue 3): on an H100 the four readings were
-# 0.0, 0.04014 px, 8.80% and 0.0 in two runs, the same to the last digit.
-# These limits are a regression check on the fused slab path (the crop,
-# keep0, the tiles) until that is fixed: the one-process bounds where the
-# readings meet them, about 10% above the readings where they do not.
-FUSED_SLAB_LIMITS = {"interior_median_px": 1e-4, "interior_mean_px": 0.045,
-                     "interior_share_above_0.1px": 0.095,
-                     "border_mean_px": 0.1}
 # [14b]'s engines: the tiled engine (K5, K6, K8) at tests/test_spatial.py's
 # preset (windowed() at levels=1), the fused engine (K5, K6, K1, K2, K4)
 # at the full windowed() preset.
@@ -2471,7 +2543,7 @@ SPATIAL_ENGINES = {
                                  warp_impl="tiled"),
     "fused": FarnebackParams.windowed()}
 SPATIAL_KERNELS = {"tiled": ("K5", "K6", "K8"),
-                   "fused": ("K1", "K2", "K4", "K5", "K6")}
+                   "fused": ("K1", "K2", "K4", "K5", "K6", "K1b")}
 K_ROWS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 
 
@@ -2534,7 +2606,7 @@ def spatial_rank(rank, out, device_type, hw, halo, reps, seed):
         for name, p in SPATIAL_ENGINES.items():
             flow = spatial.farneback_spatial(a, b, p, m, halo)
             _sync(dev)
-            reset_launches()
+            reset_all_launches()
             torch.distributed.barrier()
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -2543,7 +2615,7 @@ def spatial_rank(rank, out, device_type, hw, halo, reps, seed):
             ms = (time.perf_counter() - t0) * 1e3 / reps
             res[name] = {"ms_per_pair": ms,
                          "launches_per_pair": {k: v / reps for k, v in
-                                               launch_counts().items()}}
+                                               all_launch_counts().items()}}
             np.save(out / f"{name}_{rank}.npy", flow.cpu().numpy())
         x = torch.stack([a, b])
         times = []
@@ -2570,9 +2642,9 @@ def _spatial_readings(got, want, edge=SPATIAL_EDGE) -> dict:
 def spatial_phase(device, hw=(1080, 1920), halo=128, reps=5, seed=0):
     """[14b] farneback_spatial on 2 ranks sharing the card (gloo 'space'
     group; the kernels are built in this process beforehand), against
-    this process's farneback on the same pair: the tiled engine held to
-    SPATIAL_BOUNDS, the fused engine to FUSED_SLAB_LIMITS. Each rank's
-    launches must show its engine's kernels (off the card: none)."""
+    this process's farneback on the same pair: both engines held to
+    SPATIAL_BOUNDS. Each rank's launches must show its engine's kernels
+    (off the card: none)."""
     out = PHASE14_TMP
     out.mkdir(parents=True, exist_ok=True)
     (out / "spatial.store").unlink(missing_ok=True)
@@ -2594,12 +2666,13 @@ def spatial_phase(device, hw=(1080, 1920), halo=128, reps=5, seed=0):
             if any((n[k] > 0) != (device.type == "cuda" and
                                   k in SPATIAL_KERNELS[name]) for k in n):
                 raise AssertionError(f"spatial {name}: launches {n}")
-    for name, limits in (("tiled", SPATIAL_BOUNDS),
-                         ("fused", FUSED_SLAB_LIMITS)):
-        bad = {k: v for k, v in res[name].items() if v >= limits[k]}
+    for name in SPATIAL_ENGINES:
+        bad = {k: v for k, v in res[name].items()
+               if v >= SPATIAL_BOUNDS[k]}
         if bad:
             raise AssertionError(f"spatial {name} engine against one "
-                                 f"process: {bad} (limits {limits})")
+                                 f"process: {bad} (bounds "
+                                 f"{SPATIAL_BOUNDS})")
     return res
 
 
@@ -2779,6 +2852,207 @@ def videos_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
                       "threads_left": 0}
     res["launches_x4_per_lockstep_frame"] = {
         k: v / frames for k, v in runs[max(counts)][-1]["launches"].items()}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the space form (--mesh-space 2)
+# ---------------------------------------------------------------------------
+
+PHASE15_TMP = CLI_TMP / "phase15"
+# Launches per rank and frame of the space form's steps: legacy's slab
+# stream (K5/K6 once a level of the new frame; K1, K1b and K2 once an
+# update and iteration; K4 between levels; K5/K6 3 more for the first
+# frame's slab), timelines' K3 on the rank's vertices.
+SPACE_LEGACY_PER_FRAME = {"K1": 6, "K1b": 6, "K2": 6, "K3": 0, "K4": 2,
+                          "K5": 3, "K6": 3, "K7": 0, "K8": 0}
+SPACE_TIMELINES_PER_FRAME = {"K1": 0, "K1b": 0, "K2": 0, "K3": 1, "K4": 0,
+                             "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+SPACE_SHARE = 0.99           # equal pixels: JAX's bound for a sharded step
+
+
+@contextlib.contextmanager
+def space_recording(rec: dict, slab_fn="spatial_stream_step"):
+    """Record, on the device, what the legacy step computes: each frame's
+    flow (the band's through ``spatial.<slab_fn>`` in the space form, or
+    ``legacy.flow_stream_step``'s), its rip mask (``duty_cycle_viz``) and
+    UPPER (``thresholds``), and the slab heights (``spatial.slab_of``)."""
+    def wrap(obj, name, keep):
+        real = getattr(obj, name)
+
+        def fn(*a, **kw):
+            out = real(*a, **kw)
+            keep(out)
+            return out
+        return _patched(obj, name, fn)
+
+    with contextlib.ExitStack() as stack:
+        target = (spatial, slab_fn) if slab_fn else \
+            (legacy_mod, "flow_stream_step")
+        stack.enter_context(wrap(*target, lambda o: rec["flow"].append(
+            o[0].clone())))
+        stack.enter_context(wrap(classify, "duty_cycle_viz", lambda o: rec[
+            "mask"].append(o.outmask.clone())))
+        stack.enter_context(wrap(histops, "thresholds", lambda o: rec[
+            "upper"].append(o.upper.clone())))
+        stack.enter_context(wrap(spatial, "slab_of", lambda o: rec[
+            "slab_rows"].append(o[0].shape[-2])))
+        yield rec
+
+
+def space_rank(rank, out, device_type, hw, raw_hw, frames):
+    """[15] one of 2 processes sharing the card: ``cli.main --videos <clip>
+    --mesh-space 2`` with the farm's flags (a file:// store per run, so
+    the 'space' group is gloo) on an in-memory clip made from a seed:
+    legacy timed with every counter set to 0 just before, legacy again
+    recording (``space_recording``), then timelines. Writes
+    space_<rank>.json (launches, metrics, slab heights) and this rank's
+    recordings (space_rec_<rank>.pt); rank 0 also the written frames."""
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
+    h, w = hw
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    res = {}
+
+    def run(mode, tag, rec=None):
+        store = out / f"space_{tag}.store"
+        metrics = out / f"space_{tag}_metrics.json"
+        argv = [str(out / f"space_{tag}"), "--videos", *clips, "--mode",
+                mode, "--mesh-space", "2", "--coordinator",
+                f"file://{store}", "--num-processes", "2", "--process-id",
+                str(rank), "--no-host-prep", "--xdim", str(w), "--ydim",
+                str(h), "--device", device_type, "--metrics-json",
+                str(metrics)]
+        with memory_video(clips) as written, \
+                contextlib.redirect_stdout(io.StringIO()), \
+                (space_recording(rec) if rec is not None
+                 else contextlib.nullcontext()):
+            reset_all_launches()
+            rc = cli.main(argv)
+            launches = all_launch_counts()
+        torch.distributed.destroy_process_group()
+        if rc != 0:
+            raise AssertionError(f"space rank {rank}: cli.main {mode} "
+                                 f"exited {rc}")
+        if rank == 0:
+            for path, got in written.items():
+                np.save(out / f"{pathlib.Path(path).stem}.npy",
+                        np.stack(got))
+        return {"launches": launches,
+                "metrics": json.loads(metrics.read_text())
+                if rank == 0 else None}
+
+    res["legacy"] = run("legacy", "legacy")
+    rec = collections.defaultdict(list)
+    run("legacy", "legacy_rec", rec)
+    res["slab_rows"] = sorted(set(rec.pop("slab_rows")))
+    torch.save({k: torch.stack(v).cpu() for k, v in rec.items()},
+               out / f"space_rec_{rank}.pt")
+    res["timelines"] = run("timelines", "timelines")
+    (out / f"space_{rank}.json").write_text(json.dumps(res))
+
+
+def space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
+                frames=FRAMES):
+    """[15] the space form on 2 processes sharing the card (``space_rank``;
+    the kernels are built in this process beforehand) against this
+    process's ``run_frames`` of the same clip: timelines bit for bit;
+    legacy's overlays and rip masks equal on >= SPACE_SHARE of pixels,
+    every frame's flow within SPATIAL_BOUNDS, UPPER equal on both ranks
+    every frame; each rank's launches (SPACE_*_PER_FRAME; off the card
+    none) and slab height; beside the timings, one process's
+    ``cli.main --videos`` of the same clip. Returns what main prints."""
+    out = PHASE15_TMP
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.store"):
+        f.unlink()
+    h, w = hw
+    _spawn_ranks(space_rank, (str(out), device.type, hw, raw_hw, frames))
+    ranks = [json.loads((out / f"space_{r}.json").read_text())
+             for r in range(2)]
+    recs = [torch.load(out / f"space_rec_{r}.pt") for r in range(2)]
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    (name, raw), = clips.items()
+    dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type,
+            "--no-host-prep"]
+    cfg = cli._mode_config(cli.build_parser().parse_args(
+        [name, "--mode", "legacy", *dims]))
+    cfg = dataclasses.replace(cfg, total_frames=frames + 1)
+    want = collections.defaultdict(list)
+    with space_recording(want, slab_fn=None):
+        ref = torch.stack(list(runner.run_frames(
+            "legacy", raw, cfg, device=device))).cpu().numpy()
+    got = np.load(out / "space_legacy_s0.npy")
+    res = {"overlay_share": float(np.mean(got == ref)) if
+           got.shape == ref.shape else 0.0}
+    band = h // 2
+    masks = torch.cat([r["mask"] for r in recs], dim=1)
+    res["mask_share"] = float((masks == torch.stack(want["mask"]).cpu())
+                              .float().mean())
+    flows = torch.cat([r["flow"] for r in recs], dim=1)
+    ref_flows = torch.stack(want["flow"]).cpu()
+    readings = [_spatial_readings(g, r) for g, r in zip(flows, ref_flows)]
+    res["flow_worst"] = {k: max(x[k] for x in readings)
+                         for k in SPATIAL_BOUNDS}
+    res["upper_equal"] = bool(torch.equal(recs[0]["upper"],
+                                          recs[1]["upper"]))
+    tl_cfg = cli._mode_config(cli.build_parser().parse_args(
+        [name, "--mode", "timelines", *dims]))
+    tl_ref = torch.stack(list(runner.run_frames(
+        "timelines", raw, tl_cfg, device=device))).cpu().numpy()
+    tl_got = np.load(out / "space_timelines_s0.npy")
+    res["timelines_equal"] = bool(np.array_equal(tl_got, tl_ref))
+    halo = legacy_mod.space_halo(cfg)
+    want_legacy = _launches(device, {
+        k: v * frames + 3 * (k in ("K5", "K6"))
+        for k, v in SPACE_LEGACY_PER_FRAME.items()})
+    want_tl = _launches(device, {k: v * frames for k, v in
+                                 SPACE_TIMELINES_PER_FRAME.items()})
+    bad = []
+    if res["overlay_share"] < SPACE_SHARE or res["mask_share"] < SPACE_SHARE:
+        bad.append("overlay/mask")
+    if any(res["flow_worst"][k] >= SPATIAL_BOUNDS[k]
+           for k in SPATIAL_BOUNDS):
+        bad.append("flow")
+    if not res["upper_equal"] or not res["timelines_equal"]:
+        bad.append("UPPER/timelines")
+    for r in ranks:
+        if r["legacy"]["launches"] != want_legacy or \
+                r["timelines"]["launches"] != want_tl:
+            bad.append(f"launches {r['legacy']['launches']} / "
+                       f"{r['timelines']['launches']}")
+        if r["slab_rows"] != [band + 2 * halo if 2 * halo <= band
+                              else band + halo]:
+            bad.append(f"slab rows {r['slab_rows']}")
+    if got.shape != ref.shape or not np.isfinite(flows.numpy()).all():
+        bad.append(f"shapes {got.shape} {ref.shape}")
+    res["ranks"] = ranks
+    if bad:
+        raise AssertionError(f"[15] space form: {bad}: "
+                             f"{ {k: v for k, v in res.items() if k != 'ranks'} }")
+    single = cli_run([str(out / "single"), "--videos", name, "--mode",
+                      "legacy", *dims], clips)
+    m = ranks[0]["legacy"]["metrics"]
+    res["timing"] = {
+        "one_process_ms_per_frame":
+            single["metrics"]["seconds"] * 1e3 / frames,
+        "ranks": [{"ms_per_frame": x["ms_per_frame"],
+                   "exchange_ms_per_frame": x["exchange_s"] * 1e3 / frames,
+                   "exchange_bytes_per_frame":
+                       x["exchange_bytes_per_frame"],
+                   "exchanges_per_frame": x["exchanges_per_frame"],
+                   "output_gather_ms_per_frame":
+                       x["output_gather_s"] * 1e3 / frames,
+                   "by_label_ms_bytes_calls_per_frame": {
+                       k: [v["s"] * 1e3 / frames, v["bytes"] / frames,
+                           v["calls"] / frames]
+                       for k, v in x["exchange_by"].items()}}
+                  for x in m["space"]["ranks"]],
+        "timelines_ms_per_frame": [
+            x["ms_per_frame"]
+            for x in ranks[0]["timelines"]["metrics"]["space"]["ranks"]],
+        "backend": m["space"]["backend"], "halo": m["space"]["halo"],
+        "mesh": m["mesh"]}
     return res
 
 
@@ -3411,6 +3685,33 @@ def kernel_rows(device, launches, devs):
     ]
 
 
+def k1b_row(device, launches, rel, per_frame):
+    """The JSON row of K1b (farneback_block_sums) at [15]'s rank-1 slab
+    (``slab_update_inputs``: level 0, 240 own rows of a 368-row slab,
+    128-wide subcolumns): median of 100 profiled launches, its plain
+    version's device time and its bound: the own rows' flow read once
+    (2 x 240 x 640 float32) and the sums written, one add a value; no
+    PyTorch call sums a row window per block, so no library time."""
+    prep, flow, _, own = slab_update_inputs(device)
+    th, sw, roff = prep["th"], prep["sw"], prep["roff"]
+    fn = lambda: fu.farneback_block_sums(flow, th, sw, roff, own)  # noqa
+    ms = median_ms(fn, 100, "farneback_block_sums_kernel")
+    plain = device_ms(lambda: fu.farneback_block_sums_plain(
+        flow, th, sw, roff, own), 10)
+    n = 2 * (own[1] - own[0]) * prep["hpwp"][1]
+    nbytes = n * 4 + fn().numel() * 8
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n / F32_FLOPS * 1e3
+    return {"name": "farneback_block_sums", "route": "cuda",
+            "source": "ripcurrents_tpu_torch/csrc/farneback_update.cu",
+            "replaces": "ripcurrents_tpu/flow/fused_update.py:682",
+            "launches": launches, "max_abs_err": rel, "ms": ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "wall_ms": wall_ms(fn, 100),
+            "launches_by_space_path": {
+                "legacy --mesh-space 2, per rank and frame": per_frame}}
+
+
 def bench_rows(device):
     """Phase 8: bench_warp at both tool configurations (CUDA events over
     back-to-back launches), with K8's device time (``call_ms``), its bound
@@ -3511,6 +3812,10 @@ def main() -> int:
     print(f"[2] K7 at 640x480, budget 16, flows up to +-24 px: {k7_devs}")
     print(f"[2] K7 at 75x107, budget 4, flows up to +-7 px: "
           f"{check_warp(75, 107, dev, budget=4, flow_px=7.0)}")
+    slab_devs = check_slab_update(dev)
+    print(f"[2] K1 at row offset {slab_devs['roff']} (a 368-row slab at "
+          f"frame row 112, row tile {slab_devs['th']}), alone and with "
+          f"given base sums, and K1b: {slab_devs}")
     k8_devs = check_tiles(dev)
     devs["k8_max"] = max(r["max"] for r in k8_devs.values())
     for name, r in k8_devs.items():
@@ -3881,10 +4186,9 @@ def main() -> int:
                         for name in SPATIAL_ENGINES) +
               f"; halo exchange (2 x 256 rows through host memory) ms "
               f"{[round(t, 3) for t in rank['exchange_ms']]}")
-    print(f"[14] farneback_spatial against one process's farneback: tiled "
-          f"(windowed, levels 1) {sp['tiled']} (bounds {SPATIAL_BOUNDS}); "
-          f"fused (windowed) {sp['fused']} (regression limits "
-          f"{FUSED_SLAB_LIMITS})")
+    print(f"[14] farneback_spatial against one process's farneback "
+          f"(bounds {SPATIAL_BOUNDS}): tiled (windowed, levels 1) "
+          f"{sp['tiled']}; fused (windowed) {sp['fused']}")
     farm = farm_phase(dev)
     print(f"[14] stream farm, 2 processes on the card (--coordinator, "
           f"gloo), 2 legacy clips each: all_streams_fps "
@@ -3904,6 +4208,51 @@ def main() -> int:
             "farneback_spatial 1080p fused, per rank and pair":
                 sp["ranks"][0]["fused"]["launches_per_pair"][k]}
     print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sf = space_phase(dev)
+    tm = sf["timing"]
+    print(f"[15] cli.main --videos --mesh-space 2, 2 processes sharing the "
+          f"card ({tm['backend']}), mesh {tm['mesh']}, halo {tm['halo']}, "
+          f"{FRAMES} frames of {RAW_W}x{RAW_H} at 640x480: timelines bit "
+          f"for bit equal to run_frames ({sf['timelines_equal']}); legacy "
+          f"overlays equal on {sf['overlay_share']:.6f}, rip masks on "
+          f"{sf['mask_share']:.6f} of pixels; worst frame's flow against "
+          f"one process {sf['flow_worst']} (bounds {SPATIAL_BOUNDS}); UPPER "
+          f"equal on both ranks every frame ({sf['upper_equal']}); slab "
+          f"rows {[r['slab_rows'] for r in sf['ranks']]}")
+    for r, rank in enumerate(sf["ranks"]):
+        print(f"[15] rank {r} launches: legacy "
+              f"{rank['legacy']['launches']}, timelines "
+              f"{rank['timelines']['launches']} ({FRAMES} frames)")
+    print(f"[15] ms a frame per rank (host clock, legacy): "
+          f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+          f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+          f"exchanges per rank and frame: " + "; ".join(
+              f"{x['exchanges_per_frame']:.3f} calls, "
+              f"{x['exchange_ms_per_frame']:.3f} ms, "
+              f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
+              f"{x['output_gather_ms_per_frame']:.3f} ms)"
+              for x in tm["ranks"]) +
+          f"; timelines ms a frame per rank "
+          f"{[round(x, 3) for x in tm['timelines_ms_per_frame']]}; card: "
+          f"{card}")
+    for r, x in enumerate(tm["ranks"]):
+        print(f"[15] rank {r} legacy exchanges by kind (ms, bytes, calls a "
+              f"frame): " + "; ".join(
+                  f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
+                  for k, v in x["by_label_ms_bytes_calls_per_frame"].items()))
+    per_rank = {k: v / FRAMES for k, v in
+                sf["ranks"][0]["legacy"]["launches"].items()}
+    per_rank_tl = {k: v / FRAMES for k, v in
+                   sf["ranks"][0]["timelines"]["launches"].items()}
+    for i, k in enumerate(K_ROWS):
+        rows[i]["launches_by_space_path"] = {
+            "legacy --mesh-space 2, per rank and frame": per_rank[k],
+            "timelines --mesh-space 2, per rank and frame": per_rank_tl[k]}
+    rows.append(k1b_row(dev, sf["ranks"][0]["legacy"]["launches"]["K1b"],
+                        slab_devs["k1b_rel"], per_rank["K1b"]))
+    print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,8 +14,10 @@ a card the default exits with an error instead of falling back.
 (``pipelines/multirunner.py``); `--coordinator HOST:PORT --num-processes
 N --process-id I` makes each of N processes one member of a stream farm
 (``parallel/distributed.py``, a gloo process group), each running its
-own videos. `--mesh-space K > 1` (rows of a whole mode step over K cards)
-exits 2.
+own videos. `--mesh-space K > 1` with the farm's flags splits each
+frame's rows over K processes (a world of S x K: S stream groups of K
+ranks, all running the same command with the same videos); it runs the
+modes with a space form (legacy, timelines) and exits 2 for the others.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "after '--') names the output stem instead.")
     p.add_argument("--mesh-space", type=int, default=1, metavar="K",
                    help="with --videos: additionally shard frame rows "
-                        "over K devices (K > 1 is not ported: exits 2)")
+                        "over K devices (one process each; the farm "
+                        "flags start them; legacy and timelines)")
     p.add_argument("--mode", default="timelines",
                    choices=sorted(set(MODES) | set(SPECIAL_MODES)),
                    help="pipeline mode (reference default: timelines)")
@@ -380,12 +383,19 @@ def _refuse(args) -> "str | None":
     if not args.videos and not args.video:
         return "an input video is required (positional or --videos)"
     if args.mesh_space != 1:
-        from ripcurrents_tpu_torch.pipelines.multirunner import _stream_mesh
+        from ripcurrents_tpu_torch.pipelines.multirunner import (
+            SPACE_MODES, _stream_mesh)
         try:
             _stream_mesh(len(args.videos or ()) or 1, args.mesh_space,
-                         world=1, ydim=args.ydim)
+                         world=args.num_processes or 1, ydim=args.ydim)
         except ValueError as e:
             return str(e)
+        if not args.videos:
+            return f"--mesh-space {args.mesh_space} needs --videos"
+        if args.mode not in SPACE_MODES:
+            return (f"--mesh-space {args.mesh_space} runs the modes with a "
+                    f"space form ({', '.join(sorted(SPACE_MODES))}); "
+                    f"--mode {args.mode} has none")
     return None
 
 

@@ -42,6 +42,15 @@
 // of p0 and stores of M). A CTA leaves only after every peer has read its
 // slab sum (the second half of a split cluster barrier).
 //
+// The row tiles may start `roff` rows above row 0 (a spatial slab inside
+// a frame keeps the frame's tile grid): tile i covers rows
+// [i * th - roff, (i + 1) * th - roff) clipped to [0, hp), so the first
+// and last tiles may be partial; its S CTAs split the rows it has. A slab
+// whose tiles cut across ranks passes the blocks' flow sums over the
+// whole frame (`sums`, summed over the ranks from each rank's
+// farneback_block_sums of its own rows): the cluster then skips its
+// reduction and every CTA takes its base from them.
+//
 // Built with -fmad=false so each product and sum rounds as the plain
 // PyTorch version's separate tensor ops do; the base is reduced in double
 // so that its rounding does not depend on the summation order.
@@ -157,21 +166,23 @@ __device__ __forceinline__ void update_pair(const Level& L, int x, int y,
     out[c * (plane >> 1)] = __floats2bfloat162_rn(ma[c], mb[c]);
 }
 
-// Grid (S, wp / sw, hp / th), cluster (S, 1, 1): cluster (s, i) is base
-// block (row tile i, subcolumn s); its CTA of rank r takes rows
-// [r * th / S, (r + 1) * th / S) of the tile. Thread t handles the pixel
-// pairs t, t + kThreads, ... of its slab (row-major).
+// Grid (S, wp / sw, row tiles), cluster (S, 1, 1): cluster (s, i) is base
+// block (row tile i, subcolumn s) of n rows from row lo; its CTA of rank r
+// takes rows [lo + r * n / S, lo + (r + 1) * n / S). Thread t handles the
+// pixel pairs t, t + kThreads, ... of its slab (row-major).
 __global__ void __launch_bounds__(kThreads, 2) farneback_update_kernel(
     const __nv_bfloat16* __restrict__ p0, const __nv_bfloat16* __restrict__ p1,
     const float* __restrict__ flow, const float* __restrict__ counts,
-    __nv_bfloat16* __restrict__ m, int h, int w, int hp, int wp, int th,
-    int sw, int bres) {
+    __nv_bfloat16* __restrict__ m, const double* __restrict__ sums, int h,
+    int w, int hp, int wp, int th, int sw, int bres, int roff) {
   cg::cluster_group cluster = cg::this_cluster();
   const int nslab = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
   const int s = blockIdx.y, i = blockIdx.z, nsub = gridDim.y;
-  const int y0 = i * th + rank * th / nslab;
-  const int rows = i * th + (rank + 1) * th / nslab - y0;
+  const int lo = max(i * th - roff, 0);
+  const int n = min((i + 1) * th - roff, hp) - lo;
+  const int y0 = lo + rank * n / nslab;
+  const int rows = lo + (rank + 1) * n / nslab - y0;
   const int x0 = s * sw;
   const int pairs_per_row = sw >> 1;
   const int npair = rows * pairs_per_row;
@@ -191,67 +202,80 @@ __global__ void __launch_bounds__(kThreads, 2) farneback_update_kernel(
   L.wm1 = static_cast<float>(w) - 1.f;
   L.fb = static_cast<float>(bres);
 
-  // This slab's flow sum (pads of the flow are zero), per thread in pair
-  // order.
-  double sx = 0.0, sy = 0.0;
-  for (int k = threadIdx.x; k < npair; k += kThreads) {
-    const int ry = k / pairs_per_row, rx = k - ry * pairs_per_row;
-    const size_t q = pair0 + static_cast<size_t>(ry) * pair_row + rx;
-    const float2 a = fx2[q], b = fy2[q];
-    sx += a.x;
-    sx += a.y;
-    sy += b.x;
-    sy += b.y;
-  }
-  __shared__ double part[2][kWarps];
-  __shared__ double slab[2];
   __shared__ int base[2];
-  sx = warp_sum(sx);
-  sy = warp_sum(sy);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) {
-    part[0][wid] = sx;
-    part[1][wid] = sy;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double tx = 0.0, ty = 0.0;
-    for (int k = 0; k < kWarps; ++k) {
-      tx += part[0][k];
-      ty += part[1][k];
+  const float lx = static_cast<float>(kHaloX - bres - 1);
+  const float ly = static_cast<float>(kHaloY - bres - 1);
+  if (sums != nullptr) {
+    // The block's flow sum over the whole frame, given.
+    if (threadIdx.x == 0) {
+      const size_t b = static_cast<size_t>(i) * nsub + s;
+      const size_t yplane = static_cast<size_t>(gridDim.z) * nsub;
+      const float cnt = counts[b];
+      base[0] = static_cast<int>(
+          fminf(fmaxf(rintf(static_cast<float>(sums[b]) / cnt), -lx), lx));
+      base[1] = static_cast<int>(fminf(
+          fmaxf(rintf(static_cast<float>(sums[yplane + b]) / cnt), -ly), ly));
     }
-    slab[0] = tx;
-    slab[1] = ty;
-  }
-  cluster.sync();   // every slab sum is in its CTA's shared memory
+  } else {
+    // This slab's flow sum (pads of the flow are zero), per thread in pair
+    // order.
+    double sx = 0.0, sy = 0.0;
+    for (int k = threadIdx.x; k < npair; k += kThreads) {
+      const int ry = k / pairs_per_row, rx = k - ry * pairs_per_row;
+      const size_t q = pair0 + static_cast<size_t>(ry) * pair_row + rx;
+      const float2 a = fx2[q], b = fy2[q];
+      sx += a.x;
+      sx += a.y;
+      sy += b.x;
+      sy += b.y;
+    }
+    __shared__ double part[2][kWarps];
+    __shared__ double slab[2];
+    sx = warp_sum(sx);
+    sy = warp_sum(sy);
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    if (lane == 0) {
+      part[0][wid] = sx;
+      part[1][wid] = sy;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double tx = 0.0, ty = 0.0;
+      for (int k = 0; k < kWarps; ++k) {
+        tx += part[0][k];
+        ty += part[1][k];
+      }
+      slab[0] = tx;
+      slab[1] = ty;
+    }
+    cluster.sync();   // every slab sum is in its CTA's shared memory
 
-  // The S slab sums through distributed shared memory, one peer per
-  // thread (all S remote reads in flight at once).
-  __shared__ double peers[kMaxCluster][2];
-  if (static_cast<int>(threadIdx.x) < nslab) {
-    const double* peer = cluster.map_shared_rank(slab, threadIdx.x);
-    peers[threadIdx.x][0] = peer[0];
-    peers[threadIdx.x][1] = peer[1];
-  }
-  // First half of the exit barrier: this thread has read its peer's sum.
-  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    // The block base from the S slab sums added in rank order: the same
-    // sum in every CTA of the cluster.
-    double tx = 0.0, ty = 0.0;
-    for (int r = 0; r < nslab; ++r) {
-      tx += peers[r][0];
-      ty += peers[r][1];
+    // The S slab sums through distributed shared memory, one peer per
+    // thread (all S remote reads in flight at once).
+    __shared__ double peers[kMaxCluster][2];
+    if (static_cast<int>(threadIdx.x) < nslab) {
+      const double* peer = cluster.map_shared_rank(slab, threadIdx.x);
+      peers[threadIdx.x][0] = peer[0];
+      peers[threadIdx.x][1] = peer[1];
     }
-    const float cnt = counts[i * nsub + s];
-    const float lx = static_cast<float>(kHaloX - bres - 1);
-    const float ly = static_cast<float>(kHaloY - bres - 1);
-    // rintf rounds half to even, as jnp.round does.
-    base[0] = static_cast<int>(
-        fminf(fmaxf(rintf(static_cast<float>(tx) / cnt), -lx), lx));
-    base[1] = static_cast<int>(
-        fminf(fmaxf(rintf(static_cast<float>(ty) / cnt), -ly), ly));
+    // First half of the exit barrier: this thread has read its peer's sum.
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      // The block base from the S slab sums added in rank order: the same
+      // sum in every CTA of the cluster.
+      double tx = 0.0, ty = 0.0;
+      for (int r = 0; r < nslab; ++r) {
+        tx += peers[r][0];
+        ty += peers[r][1];
+      }
+      const float cnt = counts[i * nsub + s];
+      // rintf rounds half to even, as jnp.round does.
+      base[0] = static_cast<int>(
+          fminf(fmaxf(rintf(static_cast<float>(tx) / cnt), -lx), lx));
+      base[1] = static_cast<int>(
+          fminf(fmaxf(rintf(static_cast<float>(ty) / cnt), -ly), ly));
+    }
   }
   __syncthreads();
   const float fbx = static_cast<float>(base[0]);
@@ -271,7 +295,56 @@ __global__ void __launch_bounds__(kThreads, 2) farneback_update_kernel(
   }
   // Second half: no CTA's shared memory goes away while a peer may still
   // be reading its slab sum.
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (sums == nullptr)
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// K1's base sums of one rank's rows: block (tile i, subcolumn s) sums
+// the flow over rows [max(lo, r0), min(hi, r1)) of its tile [lo, hi)
+// (tiles as farneback_update_kernel's) in double, per thread in pair
+// order, a shuffle tree, the warps in order; grid (wp / sw, row tiles).
+// Writes out[c][i][s] (c = x, y).
+__global__ void __launch_bounds__(kThreads) farneback_block_sums_kernel(
+    const float* __restrict__ flow, double* __restrict__ out, int hp, int wp,
+    int th, int sw, int roff, int r0, int r1) {
+  const int s = blockIdx.x, i = blockIdx.y, nsub = gridDim.x;
+  const int y0 = max(max(i * th - roff, 0), r0);
+  const int rows = max(min(min((i + 1) * th - roff, hp), r1) - y0, 0);
+  const int pairs_per_row = sw >> 1;
+  const int npair = rows * pairs_per_row;
+  const size_t plane = static_cast<size_t>(hp) * wp;
+  const float2* fx2 = reinterpret_cast<const float2*>(flow);
+  const float2* fy2 = reinterpret_cast<const float2*>(flow + plane);
+  const size_t pair0 = (static_cast<size_t>(y0) * wp + s * sw) >> 1;
+  double sx = 0.0, sy = 0.0;
+  for (int k = threadIdx.x; k < npair; k += kThreads) {
+    const int ry = k / pairs_per_row, rx = k - ry * pairs_per_row;
+    const size_t q = pair0 + static_cast<size_t>(ry) * (wp >> 1) + rx;
+    const float2 a = fx2[q], b = fy2[q];
+    sx += a.x;
+    sx += a.y;
+    sy += b.x;
+    sy += b.y;
+  }
+  __shared__ double part[2][kWarps];
+  sx = warp_sum(sx);
+  sy = warp_sum(sy);
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  if (lane == 0) {
+    part[0][wid] = sx;
+    part[1][wid] = sy;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double tx = 0.0, ty = 0.0;
+    for (int k = 0; k < kWarps; ++k) {
+      tx += part[0][k];
+      ty += part[1][k];
+    }
+    const size_t b = static_cast<size_t>(i) * nsub + s;
+    out[b] = tx;
+    out[static_cast<size_t>(gridDim.y) * nsub + b] = ty;
+  }
 }
 
 cudaLaunchConfig_t cluster_config(dim3 grid, int cluster, cudaStream_t stream,
@@ -309,15 +382,21 @@ extern "C" int farneback_update_active_clusters(int cluster) {
 }
 
 // p0, p1: (5, hp + 64, wp + 256) bf16 halo'd expansion tables; flow:
-// (2, hp, wp) f32 with zero pads; counts: (hp / th, wp / sw) f32; m:
-// (5, hp, wp) bf16 output. cluster: CTAs per base block, 1 <= cluster <=
-// min(16, th). One cluster launch on `stream`; returns its CUDA error.
+// (2, hp, wp) f32 with zero pads; counts: (row tiles, wp / sw) f32, row
+// tiles = ceil((hp + roff) / th); m: (5, hp, wp) bf16 output; sums:
+// null, or (2, row tiles, wp / sw) f64 flow sums of the blocks over the
+// whole frame (counts then the whole frame's too). roff: the row tiles
+// start roff rows above row 0, 0 <= roff < th. cluster: CTAs per base
+// block, 1 <= cluster <= min(16, th). One cluster launch on `stream`;
+// returns its CUDA error.
 extern "C" int farneback_update_launch(const void* p0, const void* p1,
                                        const void* flow, const void* counts,
-                                       void* m, int h, int w, int hp, int wp,
-                                       int th, int sw, int bres, int cluster,
+                                       void* m, const void* sums, int h,
+                                       int w, int hp, int wp, int th, int sw,
+                                       int bres, int roff, int cluster,
                                        void* stream) {
-  if (cluster < 1 || cluster > kMaxCluster || cluster > th || sw % 2)
+  if (cluster < 1 || cluster > kMaxCluster || cluster > th || sw % 2 ||
+      roff < 0 || roff >= th)
     return static_cast<int>(cudaErrorInvalidValue);
   if (cluster > 8) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -327,13 +406,30 @@ extern "C" int farneback_update_launch(const void* p0, const void* p1,
   }
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(dim3(cluster, wp / sw, hp / th), cluster,
-                     static_cast<cudaStream_t>(stream), &attr);
+      cluster_config(dim3(cluster, wp / sw, (hp + roff + th - 1) / th),
+                     cluster, static_cast<cudaStream_t>(stream), &attr);
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, farneback_update_kernel, static_cast<const __nv_bfloat16*>(p0),
       static_cast<const __nv_bfloat16*>(p1), static_cast<const float*>(flow),
-      static_cast<const float*>(counts), static_cast<__nv_bfloat16*>(m), h, w,
-      hp, wp, th, sw, bres);
+      static_cast<const float*>(counts), static_cast<__nv_bfloat16*>(m),
+      static_cast<const double*>(sums), h, w, hp, wp, th, sw, bres, roff);
   if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// flow: (2, hp, wp) f32; out: (2, row tiles, wp / sw) f64, row tiles =
+// ceil((hp + roff) / th): each block's flow sum over rows [r0, r1). One
+// launch on `stream`; returns its CUDA error.
+extern "C" int farneback_block_sums_launch(const void* flow, void* out,
+                                           int hp, int wp, int th, int sw,
+                                           int roff, int r0, int r1,
+                                           void* stream) {
+  if (sw % 2 || roff < 0 || roff >= th)
+    return static_cast<int>(cudaErrorInvalidValue);
+  farneback_block_sums_kernel<<<dim3(wp / sw, (hp + roff + th - 1) / th),
+                                kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(flow), static_cast<double*>(out), hp, wp, th,
+      sw, roff, r0, r1);
   return static_cast<int>(cudaGetLastError());
 }

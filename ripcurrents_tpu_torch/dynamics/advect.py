@@ -82,13 +82,16 @@ def init_field(h: int, w: int, device) -> FieldState:
 
 
 def streamline_field(state: FieldState, flow: torch.Tensor, dt: float,
-                     iterations: int, upper) -> FieldState:
+                     iterations: int, upper, row0: int = 0) -> FieldState:
     """Advance every pixel's particle through `flow` (invoked per frame
     with dt=2, iterations=1 from ripcurrents.cpp:229-231). disp is the
-    displacement from the pixel's origin."""
-    h, w = flow.shape[0], flow.shape[1]
+    displacement from the pixel's origin. The state may hold a row band
+    of the frame, its first row at frame row `row0`; `flow` is the whole
+    frame's, since the particles move anywhere in it."""
+    h, w = state.dist.shape
     ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=flow.device),
+        torch.arange(row0, row0 + h, dtype=torch.float32,
+                     device=flow.device),
         torch.arange(w, dtype=torch.float32, device=flow.device),
         indexing="ij")
     disp, dist = state

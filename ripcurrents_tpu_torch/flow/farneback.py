@@ -25,6 +25,19 @@ Port of ``ripcurrents_tpu/flow/farneback.py``:
   chunked and multi-stream forms, which loop over the single-stream
   engine.
 
+A spatial slab (rows of a taller frame, ``parallel/spatial.py``) passes
+``slab=Slab(origin, frame_h, own, reduce)``: its first row's frame row
+and the frame's height. Every level then keeps
+the frame's block grids: the fused engine's row tile is the frame
+level's ``_row_tile``, its tiles start at the frame's tile boundaries
+shifted by the slab's origin at that level (partial first and last
+tiles), and the >= 1 MP overrides follow the frame's size (the tiled
+warp keeps the slab's own tiles). With `own` (the frame rows
+this rank owns) and `reduce` (a sum over the ranks that share the
+frame), the fused engine's warp bases are the whole frame's: before each
+K1 launch every rank sums its own rows of each block
+(``fused_update.farneback_block_sums``) and `reduce` adds them up.
+
 Conventions: images are (H, W) (uint8 or float), flow is (H, W, 2) with
 channel 0 = dx (columns) and channel 1 = dy (rows), as OpenCV.
 """
@@ -32,6 +45,7 @@ channel 0 = dx (columns) and channel 1 = dy (rows), as OpenCV.
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,8 +55,13 @@ from ripcurrents_tpu_torch import kernels
 from ripcurrents_tpu_torch.config import FarnebackParams
 from ripcurrents_tpu_torch.flow import prep_kernel
 from ripcurrents_tpu_torch.flow.fused_update import (HALO_X, HALO_Y,
-                                                     _row_tile, fused_level,
-                                                     prepare_expansions)
+                                                     _block_counts,
+                                                     _row_tile,
+                                                     farneback_block_sums,
+                                                     fused_level,
+                                                     padded_rows,
+                                                     prepare_expansions,
+                                                     row_tiles)
 from ripcurrents_tpu_torch.flow.warp_kernel import (MAX_BASE, warp5_shift,
                                                     warp_tiles)
 from ripcurrents_tpu_torch.ops.conv import gaussian_kernel
@@ -253,15 +272,76 @@ def _check_params(p: FarnebackParams) -> None:
             f"{PORTABLE_WARPS}, poly_impl one of {POLY_IMPLS}")
 
 
-def _prep_level_args(h: int, w: int, p: FarnebackParams, k: int) -> tuple:
+class Slab(NamedTuple):
+    """Rows [origin, origin + h) of a frame_h-row frame (origin < 0: rows
+    above the frame, replicated). `own`: the frame rows [r0, r1) whose
+    flow this rank keeps (the ranks' rows tile the frame); `reduce`: sums
+    a tensor over the ranks sharing the frame, every rank calling it in
+    the same order. With both, and the slab inside the frame, the fused
+    engine takes its warp bases from the whole frame's blocks."""
+    origin: int
+    frame_h: int
+    own: "Optional[tuple[int, int]]" = None
+    reduce: "Optional[Callable]" = None
+
+
+def _frame_bases(slab: Slab, p: FarnebackParams, k: int, th: int,
+                 roff: int, hw: tuple[int, int], hpwp: tuple[int, int],
+                 sw: int):
+    """(base_sums(flow), counts) of level k of a slab whose bases are the
+    whole frame's (``Slab``): base_sums sums this rank's own rows of each
+    block, places them at the frame's blocks, reduces over the ranks and
+    returns the slab's blocks; counts are the frame blocks' pixel counts.
+    Blocks past the frame's last row (the slab's row pads) keep the
+    slab's own sums and counts."""
+    scale = p.pyr_scale ** k
+    (lh, lw), (hp, wp) = hw, hpwp
+    frame_lh = int(round(slab.frame_h * scale))
+    origin = int(np.floor(slab.origin * scale + 0.5))
+    own = tuple(int(round(r * scale)) - origin for r in slab.own)
+    ft = row_tiles(frame_lh, th)
+    f0 = (origin - roff) // th
+    n = row_tiles(hp, th, roff)
+    inside = min(n, ft - f0)
+    counts = torch.from_numpy(np.concatenate([
+        _block_counts(frame_lh, lw, th, ft * th, wp, sw)[f0:f0 + inside],
+        _block_counts(lh, lw, th, hp, wp, sw, roff)[inside:]]))
+
+    def base_sums(flow):
+        part = farneback_block_sums(flow, th, sw, roff, own)
+        frame = torch.zeros((2, ft, wp // sw), dtype=torch.float64,
+                            device=flow.device)
+        frame[:, f0:f0 + inside] = part[:, :inside]
+        frame = slab.reduce(frame)
+        return torch.cat([frame[:, f0:f0 + inside], part[:, inside:]],
+                         dim=1).contiguous()
+    return base_sums, counts
+
+
+def _frame_rows(h: int, p: FarnebackParams, k: int, slab=None):
+    """(th, roff) of the fused engine at level k of an h-row image: the
+    row tile and how far above the level's first row the tiles start.
+    With a Slab the image is rows [origin, origin + h) of a frame_h-row
+    frame: th is the frame level's ``_row_tile`` and roff the slab's
+    origin at that level modulo th; else (_row_tile, 0)."""
+    scale = p.pyr_scale ** k
+    if slab is None:
+        return _row_tile(int(round(h * scale))), 0
+    th = _row_tile(int(round(slab.frame_h * scale)))
+    return th, int(np.floor(slab.origin * scale + 0.5)) % th
+
+
+def _prep_level_args(h: int, w: int, p: FarnebackParams, k: int,
+                     slab=None) -> tuple:
     """The prep geometry of pyramid level k of preset p at (h, w), as
     ``_level_prep_matrices`` takes it: for the fused engine the level at
-    (HALO_Y, HALO_X) of its halo'd (Ph, Pw) canvas, for the portable
-    engine the level alone."""
+    (HALO_Y, HALO_X) of its halo'd (Ph, Pw) canvas (Ph from the slab's
+    row tiles, ``_frame_rows``), for the portable engine the level
+    alone."""
     _, lh, lw, sigma, smooth_sz = _level_geometry(h, w, p, k)
     if p.warp_impl == "fused":
-        th = _row_tile(lh)
-        ph = -(-lh // th) * th + 2 * HALO_Y
+        th, roff = _frame_rows(h, p, k, slab)
+        ph = padded_rows(lh, th, roff) + 2 * HALO_Y
         pw = -(-lw // 128) * 128 + 2 * HALO_X
         off = (HALO_Y, HALO_X)
     else:
@@ -357,12 +437,12 @@ def _gauss_blur_reflect(img: torch.Tensor, k) -> torch.Tensor:
 
 
 def _precompute_level(f: torch.Tensor, h: int, w: int, p: FarnebackParams,
-                      k: int, cf: bool) -> torch.Tensor:
+                      k: int, cf: bool, slab=None) -> torch.Tensor:
     """Level k of ``farneback_precompute`` from the float32 frame f."""
     _, lh, lw, sigma, smooth_sz = _level_geometry(h, w, p, k)
     if p.poly_impl == "banded":
-        _, _, lh, lw, n, sig, ss, bs, ph, pw, off = _prep_level_args(h, w, p,
-                                                                     k)
+        _, _, lh, lw, n, sig, ss, bs, ph, pw, off = _prep_level_args(
+            h, w, p, k, slab)
         return poly_exp_level(f, lh, lw, n, sig, ss, bs, channels_first=cf,
                               pad_hw=(ph, pw), pad_off=off,
                               out_dtype=torch.bfloat16 if cf else None)
@@ -372,18 +452,19 @@ def _precompute_level(f: torch.Tensor, h: int, w: int, p: FarnebackParams,
                     impl=p.poly_impl)
 
 
-def farneback_precompute(frame: torch.Tensor,
-                         p: FarnebackParams) -> tuple[torch.Tensor, ...]:
+def farneback_precompute(frame: torch.Tensor, p: FarnebackParams,
+                         slab=None) -> tuple[torch.Tensor, ...]:
     """Per-level expansion tables of one frame, coarsest first. With
     poly_impl 'banded', for the fused engine (5, Hp + 2*HALO_Y,
     Wp + 2*HALO_X) bf16 with the level at (HALO_Y, HALO_X), for the
     portable engine (lh, lw, 5) float32; with 'shifted', (5, lh, lw) or
-    (lh, lw, 5) float32 (the fused engine pads and casts it per level)."""
+    (lh, lw, 5) float32 (the fused engine pads and casts it per level).
+    slab (a Slab) for rows of a taller frame (module doc)."""
     _check_params(p)
     f = frame.to(torch.float32)
     h, w = f.shape
     cf = p.warp_impl == "fused"
-    return tuple(_precompute_level(f, h, w, p, k, cf)
+    return tuple(_precompute_level(f, h, w, p, k, cf, slab)
                  for k in range(p.levels, -1, -1))
 
 
@@ -584,18 +665,24 @@ def _level_iters(p: FarnebackParams, it_sched, k: int) -> int:
 def farneback_from_expansions(e0, e1, hw: tuple[int, int],
                               p: FarnebackParams,
                               init_flow: "torch.Tensor | None" = None,
-                              channels_first: bool = False) -> torch.Tensor:
+                              channels_first: bool = False,
+                              slab=None) -> torch.Tensor:
     """Dense flow (h, w, 2), or (2, h, w) if channels_first, from two
     frames' expansion tables. init_flow (h, w, 2), if given, is the
-    starting flow, resized and scaled to the coarsest level."""
+    starting flow, resized and scaled to the coarsest level.
+    slab (a Slab) for rows of a taller frame (module doc); the tables
+    must have been made with the same slab."""
     _check_params(p)
     if p.warp_impl != "fused":
-        flow = _portable_from_expansions(e0, e1, hw, p, init_flow)
+        flow = _portable_from_expansions(e0, e1, hw, p, init_flow, slab)
         return torch.movedim(flow, -1, 0) if channels_first else flow
     h, w = hw
-    wr, it_sched = _residual_schedule(h, w, p)
+    fh = h if slab is None else slab.frame_h   # the >= 1 MP choices: frame's
+    frame_bases = slab is not None and slab.reduce is not None and \
+        slab.origin >= 0 and slab.origin + h <= slab.frame_h
+    wr, it_sched = _residual_schedule(fh, w, p)
     subcol = p.warp_subcol
-    if h * w >= p.warp_hires_px and p.warp_subcol_hires is not None:
+    if fh * w >= p.warp_hires_px and p.warp_subcol_hires is not None:
         subcol = p.warp_subcol_hires
     flow = None
     prev_true = None
@@ -603,8 +690,8 @@ def farneback_from_expansions(e0, e1, hw: tuple[int, int],
         scale, lh, lw, _, _ = _level_geometry(h, w, p, k)
         bres_k = _per_level(wr, k)
         iters_k = _level_iters(p, it_sched, k)
-        th = _row_tile(lh)
-        hp, wp = -(-lh // th) * th, -(-lw // 128) * 128
+        th, roff = _frame_rows(h, p, k, slab)
+        hp, wp = padded_rows(lh, th, roff), -(-lw // 128) * 128
         if flow is None and init_flow is not None:
             f0 = torch.movedim(resize_bilinear(
                 init_flow.to(torch.float32), (lh, lw)) * scale, -1, 0)
@@ -619,9 +706,14 @@ def farneback_from_expansions(e0, e1, hw: tuple[int, int],
                                              (hp, wp), 1.0 / p.pyr_scale)
         prev_true = (lh, lw)
         prep = prepare_expansions(e0[idx], e1[idx], th, hw=(lh, lw),
-                                  subcol=subcol)
+                                  subcol=subcol, roff=roff)
+        base_sums = None
+        if frame_bases:
+            base_sums, counts = _frame_bases(slab, p, k, th, roff, (lh, lw),
+                                             (hp, wp), prep["sw"])
+            prep["counts"] = counts.to(flow.device)
         flow = fused_level(prep, flow, p.winsize, p.gaussian, bres_k,
-                           iters_k)
+                           iters_k, base_sums)
     out = flow[:, :h, :w]
     return out if channels_first else torch.movedim(out, 0, -1)
 
@@ -639,16 +731,19 @@ def _adaptive_tile(lh: int, lw: int,
 
 def _portable_from_expansions(e0, e1, hw: tuple[int, int],
                               p: FarnebackParams,
-                              init_flow: "torch.Tensor | None" = None
-                              ) -> torch.Tensor:
+                              init_flow: "torch.Tensor | None" = None,
+                              slab=None) -> torch.Tensor:
     """The portable engine's pyramid loop: flow at its true (lh, lw, 2)
     shape, resized by 1/pyr_scale between levels; per level the update,
     then iterations x (blur, solve), updating again between them. The
     tiled warp takes each level's residual budget from warp_residual
-    (warp_residual_hires at >= warp_hires_px) and its tile from
-    ``_adaptive_tile``."""
+    (warp_residual_hires at >= warp_hires_px, the frame's size deciding
+    for a slab) and its tile from ``_adaptive_tile`` of the level's size.
+    K8's tiles start at the level's first row: a slab keeps its own tiles,
+    as JAX's ``farneback_spatial`` runs ``farneback`` per slab."""
     h, w = hw
-    wr, it_sched = _residual_schedule(h, w, p)
+    wr, it_sched = _residual_schedule(h if slab is None else slab.frame_h,
+                                      w, p)
     flow = None
     for idx, k in enumerate(range(p.levels, -1, -1)):
         scale, lh, lw, _, _ = _level_geometry(h, w, p, k)
@@ -675,24 +770,29 @@ def _portable_from_expansions(e0, e1, hw: tuple[int, int],
 
 
 def farneback(prev: torch.Tensor, nxt: torch.Tensor, p: FarnebackParams,
-              init_flow: "torch.Tensor | None" = None) -> torch.Tensor:
+              init_flow: "torch.Tensor | None" = None,
+              slab=None) -> torch.Tensor:
     """Dense flow from `prev` to `nxt`: (H, W) -> (H, W, 2) float32,
-    starting from init_flow (H, W, 2) if given."""
-    return farneback_from_expansions(farneback_precompute(prev, p),
-                                     farneback_precompute(nxt, p),
-                                     tuple(prev.shape), p, init_flow)
+    starting from init_flow (H, W, 2) if given. slab (a Slab) when the
+    two images are rows [origin, origin + H) of taller frames (module
+    doc)."""
+    return farneback_from_expansions(farneback_precompute(prev, p, slab),
+                                     farneback_precompute(nxt, p, slab),
+                                     tuple(prev.shape), p, init_flow,
+                                     slab=slab)
 
 
 def farneback_stream(prev_exp, nxt: torch.Tensor, p: FarnebackParams,
                      init_flow: "torch.Tensor | None" = None,
-                     channels_first: bool = False):
+                     channels_first: bool = False, slab=None):
     """Streaming step: (previous frame's expansions, next frame) ->
     (flow, next frame's expansions). Carrying the expansions expands each
     frame once per stream. channels_first=True returns flow as
-    (2, h, w)."""
-    nxt_exp = farneback_precompute(nxt, p)
+    (2, h, w). slab (a Slab) for rows of taller frames (module doc), the
+    same for both frames."""
+    nxt_exp = farneback_precompute(nxt, p, slab)
     flow = farneback_from_expansions(prev_exp, nxt_exp, tuple(nxt.shape), p,
-                                     init_flow, channels_first)
+                                     init_flow, channels_first, slab)
     return flow, nxt_exp
 
 

@@ -10,7 +10,10 @@ two hand-written CUDA kernels (``csrc/``):
 - K1 ``farneback_update``: per (row tile x subcolumn) block the integer
   base displacement, the bilinear sample of the second frame's expansion
   at base + clamped residual, and the FarnebackUpdateMatrices tail -> M;
-  launched as one thread-block cluster of ``cluster_size`` CTAs per block;
+  launched as one thread-block cluster of ``cluster_size`` CTAs per block.
+  A spatial slab whose blocks cut across ranks hands it the blocks' flow
+  sums over the whole frame instead, each rank's part from
+  ``farneback_block_sums`` (the same source file) over the rows it owns;
 - K2 ``farneback_blur_solve``: the window blur of M and the 2x2 solve ->
   flow.
 
@@ -54,6 +57,20 @@ def _row_tile(lh: int) -> int:
             best = (key, th)
     th = best[1]
     return min(th, -(-lh // 8) * 8)   # never taller than the padded image
+
+
+def padded_rows(lh: int, th: int, roff: int = 0) -> int:
+    """Padded height Hp of a level of lh rows whose row tiles start roff
+    rows above its first row: whole tiles from row 0 (ceil(lh/th)*th) when
+    roff is 0, else lh rounded up to a multiple of 8 (K2's row tiles), the
+    first and last tiles partial."""
+    return -(-lh // th) * th if roff == 0 else -(-lh // 8) * 8
+
+
+def row_tiles(hp: int, th: int, roff: int = 0) -> int:
+    """Row tiles covering rows [0, hp) of a grid of th-row tiles that
+    starts roff rows above row 0."""
+    return -(-(hp + roff) // th)
 
 
 def _subcol_width(wp: int, pref: "int | None" = None) -> int:
@@ -115,23 +132,30 @@ def _blur_weights_on(hp: int, h: int, winsize: int, gaussian: bool,
 
 
 def _block_counts(h: int, w: int, th: int, hp: int, wp: int,
-                  sw: int) -> np.ndarray:
-    """Real-pixel count of every (row tile, subcolumn) block (>= 1)."""
-    ty_n, nsub = hp // th, wp // sw
-    rows = np.minimum(np.arange(ty_n) * th + th, h) - np.arange(ty_n) * th
+                  sw: int, roff: int = 0) -> np.ndarray:
+    """Real-pixel count of every (row tile, subcolumn) block (>= 1); row
+    tile i covers rows [i*th - roff, (i+1)*th - roff) clipped to [0, hp)."""
+    ty_n, nsub = row_tiles(hp, th, roff), wp // sw
+    lo = np.maximum(np.arange(ty_n) * th - roff, 0)
+    rows = np.clip(np.minimum(np.arange(ty_n) * th + th - roff, h) - lo, 0,
+                   None)
     cols = np.clip(w - np.arange(nsub) * sw, 0, sw)
     return np.maximum(rows[:, None] * cols[None, :], 1).astype(np.float32)
 
 
 def prepare_expansions(e0: torch.Tensor, e1: torch.Tensor, th: int,
                        hw: "tuple[int, int] | None" = None,
-                       subcol: "int | None" = None) -> dict:
+                       subcol: "int | None" = None, roff: int = 0) -> dict:
     """Per-level kernel inputs: both frames' expansions in the halo'd bf16
     layout (5, Hp+2*HALO_Y, Wp+2*HALO_X) plus the per-(tile, subcolumn)
     real-pixel counts. Accepts expansions already halo'd (pass hw=(h, w))
-    or raw (5, h, w), which are padded and cast here."""
+    or raw (5, h, w), which are padded and cast here. roff: the row tiles
+    start roff rows above the level's first row (a slab inside a frame,
+    whose tile grid it keeps; Hp from ``padded_rows``)."""
     h, w = hw if hw is not None else tuple(e0.shape[1:])
-    hp = -(-h // th) * th
+    if not 0 <= roff < th:
+        raise ValueError(f"row offset {roff} outside [0, {th})")
+    hp = padded_rows(h, th, roff)
     wp = -(-w // 128) * 128
     sw = _subcol_width(wp, subcol)
     want = (hp + 2 * HALO_Y, wp + 2 * HALO_X)
@@ -139,10 +163,11 @@ def prepare_expansions(e0: torch.Tensor, e1: torch.Tensor, th: int,
         pad = (HALO_X, HALO_X + wp - w, HALO_Y, HALO_Y + hp - h)
         e0 = F.pad(e0, pad).to(torch.bfloat16)
         e1 = F.pad(e1, pad).to(torch.bfloat16)
-    counts = torch.from_numpy(_block_counts(h, w, th, hp, wp, sw)).to(
-        e0.device)
+    counts = torch.from_numpy(_block_counts(h, w, th, hp, wp, sw,
+                                            roff)).to(e0.device)
     return {"p0": e0.contiguous(), "p1": e1.contiguous(), "counts": counts,
-            "hw": (h, w), "hpwp": (hp, wp), "th": th, "sw": sw}
+            "hw": (h, w), "hpwp": (hp, wp), "th": th, "sw": sw,
+            "roff": roff}
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -166,21 +191,70 @@ def _border_ramp(d: torch.Tensor) -> torch.Tensor:
         d <= 1, 0.14, torch.where(d <= 4, 0.4472, 1.0)))
 
 
+def farneback_block_sums_plain(flow: torch.Tensor, th: int, sw: int,
+                               roff: int, rows: tuple[int, int]
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of K1's base sums: the flow (2, Hp, Wp) of
+    each (row tile, subcolumn) block summed in float64 over rows
+    [r0, r1) -> (2, row tiles, Wp / sw)."""
+    _, hp, wp = flow.shape
+    ty_n = row_tiles(hp, th, roff)
+    y = torch.arange(hp, device=flow.device)[:, None]
+    f = torch.where((y >= rows[0]) & (y < rows[1]), flow.double(), 0.0)
+    grid = F.pad(f, (0, 0, roff, ty_n * th - roff - hp))
+    return grid.reshape(2, ty_n, th, wp // sw, sw).sum(dim=(2, 4))
+
+
+def farneback_block_sums(flow: torch.Tensor, th: int, sw: int, roff: int,
+                         rows: tuple[int, int]) -> torch.Tensor:
+    """K1's base sums of one rank's rows [r0, r1) of a level's flow (2, Hp,
+    Wp) f32: (2, row tiles, Wp / sw) f64, each block's rows of [r0, r1)
+    summed per thread in pair order, then a shuffle tree and the warps in
+    order. On CUDA tensors one launch of ``farneback_block_sums_kernel``
+    (csrc/farneback_update.cu), one block of threads a base block."""
+    _, hp, wp = flow.shape
+    dev = flow.device
+    _require(flow, "flow", torch.float32, (2, hp, wp), dev)
+    if wp % sw or sw % 2 or not 0 <= roff < th:
+        raise ValueError(f"bad geometry: hpwp={(hp, wp)} th={th} sw={sw} "
+                         f"roff={roff}")
+    if not kernels.launches_on(dev):
+        return farneback_block_sums_plain(flow, th, sw, roff, rows)
+    out = torch.empty((2, row_tiles(hp, th, roff), wp // sw),
+                      dtype=torch.float64, device=dev)
+    err = kernels.entry("farneback_block_sums")(
+        flow.data_ptr(), out.data_ptr(), hp, wp, th, sw, roff, rows[0],
+        rows[1], torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "farneback_block_sums")
+    farneback_block_sums.launches += 1
+    return out
+
+
+farneback_block_sums.launches = 0
+
+
 def farneback_update_plain(p0: torch.Tensor, p1: torch.Tensor,
                            flow: torch.Tensor, counts: torch.Tensor,
                            hw: tuple[int, int], th: int, sw: int,
-                           bres: int) -> torch.Tensor:
-    """Plain PyTorch version of K1 (same roundings): -> M (5, Hp, Wp) bf16."""
+                           bres: int, roff: int = 0,
+                           sums: "torch.Tensor | None" = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same roundings): -> M (5, Hp, Wp) bf16.
+    Row tile i covers rows [i*th - roff, (i+1)*th - roff) of the level;
+    `sums` (2, row tiles, Wp / sw) f64, if given, are the blocks' flow
+    sums (else the flow's own, in float64)."""
     h, w = hw
     _, hp, wp = flow.shape
     dev = flow.device
-    ty_n, nsub = hp // th, wp // sw
-    sums = flow.double().reshape(2, ty_n, th, nsub, sw).sum(dim=(2, 4))
+    ty_n, nsub = row_tiles(hp, th, roff), wp // sw
+    if sums is None:
+        sums = farneback_block_sums_plain(flow, th, sw, roff, (0, hp))
     q = torch.round(sums.float() / counts)          # half to even
     lim = torch.tensor([HALO_X - bres - 1, HALO_Y - bres - 1],
                        dtype=torch.float32, device=dev)[:, None, None]
     base = torch.minimum(torch.maximum(q, -lim), lim)
-    base = base.repeat_interleave(th, dim=1).repeat_interleave(sw, dim=2)
+    base = base.repeat_interleave(th, dim=1)[:, roff:roff + hp]
+    base = base.repeat_interleave(sw, dim=2)
     dx, dy = flow[0], flow[1]
     rx = torch.clamp(dx - base[0], -float(bres), float(bres))
     ry = torch.clamp(dy - base[1], -float(bres), float(bres))
@@ -233,16 +307,16 @@ MAX_CLUSTER = 16
 
 
 def cluster_size(th: int, hp: int, wp: int, sw: int,
-                 active: dict) -> tuple[int, int]:
+                 active: dict, roff: int = 0) -> tuple[int, int]:
     """(S, CTAs) of K1's launch at one level: S CTAs of one cluster split
     each (th x sw) base block's rows evenly (CTA r takes rows
-    [r*th//S, (r+1)*th//S), so S <= th leaves none empty). S is the
-    largest power of two <= min(MAX_CLUSTER, th) at which the card holds
-    every cluster of the level at once (blocks <= active[S], `active`
-    mapping a cluster size to the clusters the card holds: one wave, so
-    no cluster waits for another to finish), else 1.
-    CTAs = (hp/th) * (wp/sw) * S."""
-    blocks = (hp // th) * (wp // sw)
+    [r*n//S, (r+1)*n//S) of the block's n rows; n = th but for a
+    partial first or last tile). S is the largest power of two <=
+    min(MAX_CLUSTER, th) at which the card holds every cluster of the
+    level at once (blocks <= active[S], `active` mapping a cluster size
+    to the clusters the card holds: one wave, so no cluster waits for
+    another to finish), else 1. CTAs = row_tiles * (wp/sw) * S."""
+    blocks = row_tiles(hp, th, roff) * (wp // sw)
     s = 1
     while 2 * s <= min(MAX_CLUSTER, th) and blocks <= active.get(2 * s, 0):
         s *= 2
@@ -259,38 +333,48 @@ def card_clusters() -> dict:
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_cluster(th: int, hp: int, wp: int, sw: int) -> int:
-    return cluster_size(th, hp, wp, sw, card_clusters())[0]
+def _launch_cluster(th: int, hp: int, wp: int, sw: int, roff: int) -> int:
+    return cluster_size(th, hp, wp, sw, card_clusters(), roff)[0]
 
 
-def farneback_update(prep: dict, flow: torch.Tensor,
-                     bres: int) -> torch.Tensor:
+def farneback_update(prep: dict, flow: torch.Tensor, bres: int,
+                     sums: "torch.Tensor | None" = None) -> torch.Tensor:
     """K1: the matrix update of one level from flow (2, Hp, Wp) f32 with
-    zero pads -> M (5, Hp, Wp) bf16. On CUDA tensors one cluster launch
+    zero pads -> M (5, Hp, Wp) bf16; the base blocks' row tiles start
+    prep["roff"] rows above row 0. `sums`, if given, are the blocks' flow
+    sums (2, row tiles, Wp / sw) f64 to take the bases from, with
+    prep["counts"] their pixel counts. On CUDA tensors one cluster launch
     (``cluster_size`` CTAs per base block)."""
     (h, w), (hp, wp), th, sw = prep["hw"], prep["hpwp"], prep["th"], \
         prep["sw"]
+    roff = prep.get("roff", 0)
     dev = flow.device
     table = (5, hp + 2 * HALO_Y, wp + 2 * HALO_X)
     _require(prep["p0"], "p0", torch.bfloat16, table, dev)
     _require(prep["p1"], "p1", torch.bfloat16, table, dev)
     _require(flow, "flow", torch.float32, (2, hp, wp), dev)
     _require(prep["counts"], "counts", torch.float32,
-             (hp // th, wp // sw), dev)
-    if hp % th or wp % sw or wp % 128 or not 0 <= bres < HALO_Y - 1:
+             (row_tiles(hp, th, roff), wp // sw), dev)
+    if sums is not None:
+        _require(sums, "sums", torch.float64,
+                 (2, row_tiles(hp, th, roff), wp // sw), dev)
+    if hp < h or wp % sw or wp % 128 or not 0 <= bres < HALO_Y - 1 or \
+            not 0 <= roff < th:
         raise ValueError(f"bad geometry: hpwp={(hp, wp)} th={th} sw={sw} "
-                         f"bres={bres}")
+                         f"bres={bres} roff={roff}")
     if not kernels.launches_on(dev):
         return farneback_update_plain(prep["p0"], prep["p1"], flow,
-                                      prep["counts"], (h, w), th, sw, bres)
+                                      prep["counts"], (h, w), th, sw, bres,
+                                      roff, sums)
     if flow.data_ptr() % 8 or prep["p0"].data_ptr() % 4:
         raise ValueError("farneback_update: flow must be 8-byte and p0 "
                          "4-byte aligned (paired loads)")
     m = torch.empty((5, hp, wp), dtype=M_DTYPE, device=dev)
     err = kernels.entry("farneback_update")(
         prep["p0"].data_ptr(), prep["p1"].data_ptr(), flow.data_ptr(),
-        prep["counts"].data_ptr(), m.data_ptr(), h, w, hp, wp, th, sw, bres,
-        _launch_cluster(th, hp, wp, sw),
+        prep["counts"].data_ptr(), m.data_ptr(),
+        None if sums is None else sums.data_ptr(), h, w, hp, wp, th, sw,
+        bres, roff, _launch_cluster(th, hp, wp, sw, roff),
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "farneback_update")
     farneback_update.launches += 1
@@ -437,14 +521,20 @@ farneback_blur_solve.launches = 0
 # ---------------------------------------------------------------------------
 
 def fused_level(prep: dict, flow: torch.Tensor, winsize: int,
-                gaussian: bool, bres: int, iterations: int) -> torch.Tensor:
+                gaussian: bool, bres: int, iterations: int,
+                base_sums=None) -> torch.Tensor:
     """One whole pyramid level (counterpart of the TPU's
     fused_level_prepped with padded_io=True): the first update from the
     init flow, iterations - 1 rounds of blur + solve + update, and the
     final blur + solve. flow in and out is (2, Hp, Wp) f32 with zero
-    pads."""
-    m = farneback_update(prep, flow, bres)
+    pads. base_sums(flow), if given, makes each update's block sums (a
+    slab's, over the whole frame)."""
+    def update(flow):
+        return farneback_update(prep, flow, bres, None if base_sums is None
+                                else base_sums(flow))
+
+    m = update(flow)
     for _ in range(iterations - 1):
         flow = farneback_blur_solve(m, prep["hw"], winsize, gaussian, True)
-        m = farneback_update(prep, flow, bres)
+        m = update(flow)
     return farneback_blur_solve(m, prep["hw"], winsize, gaussian, True)

@@ -53,8 +53,11 @@ _F = ctypes.c_float
 # entry -> (source stem, C entry point, argtypes)
 _ENTRIES = {
     "farneback_update": ("farneback_update", "farneback_update_launch",
-                         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _P]),
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P]),
+    "farneback_block_sums": ("farneback_update",
+                             "farneback_block_sums_launch",
+                             [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "farneback_update_active_clusters": ("farneback_update",
                                          "farneback_update_active_clusters",
                                          [_I]),

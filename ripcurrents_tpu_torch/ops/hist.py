@@ -34,19 +34,32 @@ def empty_histogram(p: HistogramParams,
                          z(p.directions))
 
 
-def bin_flow(mag: torch.Tensor, ang: torch.Tensor,
-             p: HistogramParams) -> FlowHistogram:
-    """Bin polar flow (angle in degrees) into the 1-D and direction x
-    magnitude histograms; only magnitude bins in [0, bins) count
-    (ripcurrents_module.cpp:101)."""
+def bin_counts(mag: torch.Tensor, ang: torch.Tensor,
+               p: HistogramParams) -> torch.Tensor:
+    """The direction x magnitude bin counts of polar flow (angle in
+    degrees), flat (directions * bins + 1,) int64, the last slot the
+    magnitudes outside [0, bins) (ripcurrents_module.cpp:101). Counts of
+    row bands add up to the frame's exactly."""
     bins = (mag * p.resolution).to(torch.int32)     # truncates toward zero
     dirs = (ang * p.directions / 360.0).to(torch.int32)
     dirs = torch.clamp(dirs, 0, p.directions - 1)
     valid = (bins >= 0) & (bins < p.bins)
     flat = torch.where(valid, dirs * p.bins + torch.clamp(bins, 0, p.bins - 1),
                        p.directions * p.bins)       # overflow slot
-    counts = torch.bincount(flat.reshape(-1).long(),
-                            minlength=p.directions * p.bins + 1)
+    return torch.bincount(flat.reshape(-1).long(),
+                          minlength=p.directions * p.bins + 1)
+
+
+def bin_flow(mag: torch.Tensor, ang: torch.Tensor,
+             p: HistogramParams) -> FlowHistogram:
+    """Bin polar flow (angle in degrees) into the 1-D and direction x
+    magnitude histograms; only magnitude bins in [0, bins) count
+    (ripcurrents_module.cpp:101)."""
+    return from_counts(bin_counts(mag, ang, p), p)
+
+
+def from_counts(counts: torch.Tensor, p: HistogramParams) -> FlowHistogram:
+    """The histograms of ``bin_counts``' flat counts."""
     hist2d = counts[:-1].reshape(p.directions, p.bins).to(torch.int32)
     hist = hist2d.sum(dim=0, dtype=torch.int32)
     return FlowHistogram(hist, hist.sum(dtype=torch.int32), hist2d,

@@ -101,11 +101,47 @@ def _axis_matrix(src: int, dst: int, kind: str,
     return torch.from_numpy(m).to(device)
 
 
-def _resize(img: torch.Tensor, out_hw: tuple[int, int],
-            kind: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=64)
+def band_source_rows(src: int, dst: int, rows: tuple[int, int],
+                     kind: str = "linear") -> tuple[int, int]:
+    """The source rows [a, b) that output rows [i0, i1) of a src -> dst
+    resize read (the taps with nonzero weight; bilinear reaches one row
+    past the band's last centre)."""
+    fn = _linear_weights if kind == "linear" else _area_weights
+    idx, w = fn(src, dst)
+    i0, i1 = rows
+    used = idx[i0:i1][w[i0:i1] != 0]
+    if used.size == 0:
+        used = idx[i0:i1].reshape(-1)
+    return int(used.min()), int(used.max()) + 1
+
+
+def _resize(img: torch.Tensor, out_hw: tuple[int, int], kind: str,
+            rows: "tuple[int, int] | None" = None,
+            src: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """Resize to out_hw, or only output rows [i0, i1) of it (`rows`) from
+    img holding source rows [a0, a0 + img.shape[0]) of a frame of
+    src_h rows (`src` = (a0, src_h); default the whole frame): the y pass
+    multiplies the rows it needs by the same matrix's rows and columns
+    for the band, so where the taps' products and sums are exact in
+    float32 (weights of few bits, as 720 -> 480 and 1280 -> 640 have)
+    the band equals those rows of the whole resize bit for bit."""
     h, w = out_hw
+    a0, src_h = (0, img.shape[0]) if src is None else src
+    my = _axis_matrix(src_h, h, kind, img.device)
+    if rows is not None:
+        a, b = band_source_rows(src_h, h, tuple(rows), kind)
+        if a < a0 or b > a0 + img.shape[0]:
+            raise ValueError(f"output rows {rows} need source rows "
+                             f"[{a}, {b}), given [{a0}, "
+                             f"{a0 + img.shape[0]})")
+        img = img[a - a0:b - a0]
+        my = my[a:b, rows[0]:rows[1]]
+        h = rows[1] - rows[0]
+    elif img.shape[0] != src_h:
+        raise ValueError(f"{img.shape[0]} rows given for a {src_h}-row "
+                         f"frame and no output rows")
     x = img.to(torch.float32)
-    my = _axis_matrix(img.shape[0], h, kind, img.device)
     mx = _axis_matrix(img.shape[1], w, kind, img.device)
     rest = x.shape[2:]
     x = (my.T @ x.reshape(x.shape[0], -1)).reshape((h, x.shape[1]) + rest)
@@ -118,9 +154,12 @@ def _resize(img: torch.Tensor, out_hw: tuple[int, int],
     return x.to(img.dtype)
 
 
-def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
-    """cv2.resize(..., INTER_LINEAR). img is (H, W) or (H, W, C)."""
-    return _resize(img, out_hw, "linear")
+def resize_bilinear(img: torch.Tensor, out_hw: tuple[int, int],
+                    rows: "tuple[int, int] | None" = None,
+                    src: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """cv2.resize(..., INTER_LINEAR). img is (H, W) or (H, W, C). `rows`
+    and `src` resize a row band only (``_resize``)."""
+    return _resize(img, out_hw, "linear", rows, src)
 
 
 def resize_area(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:

@@ -69,8 +69,20 @@ def morph_gradient(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
     return dilate(img, kernel) - erode(img, kernel)
 
 
-def rip_edges(mask_u8: torch.Tensor) -> torch.Tensor:
+# Rows beyond a pixel that rip_edges reads: two passes of a 5x5 element.
+EDGE_HALO = 4
+
+
+def rip_edges(mask_u8: torch.Tensor, above: "torch.Tensor | None" = None,
+              below: "torch.Tensor | None" = None) -> torch.Tensor:
     """create_edges: dilate with a 5x5 ellipse, then the morphological
-    gradient (dilation - erosion) with the same element."""
+    gradient (dilation - erosion) with the same element. For a row band
+    of the frame, `above` / `below` are the EDGE_HALO frame rows next to
+    it (None at the frame's edge, where the frame's border rule holds):
+    the band's edges then equal those rows of the whole frame's."""
     k = ellipse_kernel(5, 5)
-    return morph_gradient(dilate(mask_u8, k), k)
+    if above is None and below is None:
+        return morph_gradient(dilate(mask_u8, k), k)
+    x = torch.cat([t for t in (above, mask_u8, below) if t is not None])
+    top = 0 if above is None else above.shape[0]
+    return morph_gradient(dilate(x, k), k)[top:top + mask_u8.shape[0]]

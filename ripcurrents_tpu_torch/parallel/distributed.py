@@ -57,10 +57,12 @@ def global_stream_mesh(space: int = 1, backend: str | None = None) -> Mesh:
 
 
 def local_stream_slice(mesh: Mesh) -> slice:
-    """The rows of the global stream axis owned by this process."""
+    """The rows of the global stream axis owned by this process: the
+    rows of its 'space' group (a stream group of mesh.space processes)."""
     n, pid = world()
-    per = mesh.shape["stream"] // n
-    return slice(pid * per, (pid + 1) * per)
+    per = mesh.shape["stream"] * mesh.space // n
+    g = pid // mesh.space
+    return slice(g * per, (g + 1) * per)
 
 
 def all_streams_fps(local_fps: float) -> float:

@@ -15,18 +15,30 @@ Accuracy: flow at a pixel depends on a finite neighbourhood (pyramid
 levels x [poly window + blur window + warp base range]); the slab is
 computed as if its edges were frame edges, so border artefacts live
 within that radius of the slab edge and are cropped away with the halo.
-Two bounded deviations from the single-device result:
+The slab passes its place in the frame to the engine
+(``farneback(..., slab=Slab(...))``), so the fused engine's warp base
+blocks follow the frame's row tiles at every level. A slab inside the frame also
+passes the rows this rank owns and a sum over the 'space' group: before
+each K1 launch the ranks add up their own rows' flow sums of every block
+(one small all-reduce), so each block's base is the whole frame's, as
+one process computes it, even where the block is cut by a slab's edge
+(at the coarse levels one block spans the whole frame). Bounded
+deviations from the single-device result:
 
-- the engines' block grids depend on the level's size (the fused
-  engine's row tiles ``fused_update._row_tile``, the tiled warp's
-  ``farneback._adaptive_tile``). Keep `halo` a multiple of the warp tile
-  height (64 by default) so the slab's tile grid aligns with the full
-  frame's; a misaligned grid shifts the per-tile warp bases and
-  ill-conditioned pixels can flip (a few percent tail);
+- the replicate-padded slabs keep the bases of the rows they hold, and
+  the tiled warp's tiles follow the slab (its size and first row, as
+  JAX's slabs do): keep `halo` a multiple of the tiled warp's tile
+  height (64 by default) for its grid to align with the frame's. A shifted base moves the residual's clamp,
+  so ill-conditioned pixels can flip;
 - with the replicate-pad slabs (band / 2 < halo <= band) the frame's
   outermost rows see the border ramp at the slab edge instead of the
   true frame edge. The clamped slabs (2 * halo <= band) put the true
   frame edge at the slab edge on the edge ranks.
+
+``spatial_stream_init`` / ``spatial_stream_step`` are the stream form:
+each rank carries its slab's expansions and exchanges only the new
+frame's halo rows each step; ``stream_halo`` derives the halo from a
+preset.
 
 A 'space' group on gloo (ranks sharing a card) takes CPU tensors only,
 so its halo rows are staged through host memory; on NCCL they move as
@@ -35,39 +47,49 @@ device tensors.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
 
 from ripcurrents_tpu_torch.config import FarnebackParams
-from ripcurrents_tpu_torch.flow.farneback import farneback
-from ripcurrents_tpu_torch.parallel.mesh import Mesh
+from ripcurrents_tpu_torch.flow.farneback import (Slab, _level_iters,
+                                                  _per_level,
+                                                  _residual_schedule,
+                                                  farneback,
+                                                  farneback_precompute,
+                                                  farneback_stream)
+from ripcurrents_tpu_torch.parallel.mesh import (Mesh, exchanged,
+                                                 space_all_reduce)
 
 
-def exchange_rows(mesh: Mesh, x: torch.Tensor, rows: int):
+def exchange_rows(mesh: Mesh, x: torch.Tensor, rows: int,
+                  label: str = "halo rows"):
     """Swap `rows` boundary rows of x (..., band, W) with the ring
     neighbours on the 'space' axis: this rank's first rows go to the
     previous rank and its last rows to the next. -> (the previous rank's
     last rows, the next rank's first rows), each None on the frame's
-    edge (the outermost ranks send nothing around the ring)."""
+    edge (the outermost ranks send nothing around the ring). `label`
+    names the exchange in the mesh's tally."""
     n, idx = mesh.space, mesh.coords["space"]
-    staged = x.device.type != "cpu" and \
-        dist.get_backend(mesh.group) == dist.Backend.GLOO
-    send = x.cpu() if staged else x
-    shape = x.shape[:-2] + (rows, x.shape[-1])
-    ops, got = [], {}
-    for side, j, rows_out in (("above", idx - 1, send[..., :rows, :]),
-                              ("below", idx + 1, send[..., -rows:, :])):
-        if 0 <= j < n:
+    peers = [(side, j) for side, j in (("above", idx - 1), ("below", idx + 1))
+             if 0 <= j < n]
+    edges = torch.stack([x[..., :rows, :], x[..., -rows:, :]])
+    with exchanged(mesh, edges, nbytes=edges[0].numel() *
+                   edges.element_size() * len(peers),
+                   label=label) as (send, back):
+        ops, got = [], {}
+        for side, j in peers:
             peer = mesh.rank - idx + j
-            got[side] = torch.empty(shape, dtype=send.dtype,
-                                    device=send.device)
-            ops += [dist.P2POp(dist.isend, rows_out.contiguous(), peer,
-                               mesh.group),
+            got[side] = torch.empty_like(send[0])
+            ops += [dist.P2POp(dist.isend, send[int(side == "below")],
+                               peer, mesh.group),
                     dist.P2POp(dist.irecv, got[side], peer, mesh.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    if staged:
-        got = {k: v.to(x.device) for k, v in got.items()}
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        got = {k: back(v) for k, v in got.items()}
     return got.get("above"), got.get("below")
 
 
@@ -105,6 +127,97 @@ def _clamped_slab(x: torch.Tensor, halo: int, mesh: Mesh):
     return comp[..., off:off + band + 2 * halo, :], start - w0
 
 
+def slab_of(x: torch.Tensor, halo: int, mesh: Mesh,
+            edges: str = "replicate"):
+    """This rank's slab of x (..., band, W): the clamped slab when
+    2 * halo <= band, else the band with `halo` rows of each neighbour:
+    at the frame's edges either `halo` replicated rows (edges=
+    "replicate", the JAX package's slab) or none (edges="frame": the
+    slab ends at the frame's edge, as the clamped slab does, and the
+    edge ranks' slabs are `halo` rows shorter). -> (slab, keep0,
+    origin): the band's first row inside the slab and the slab's first
+    row in the frame (negative for a replicate-padded top)."""
+    band = x.shape[-2]
+    if 2 * halo <= band:
+        slab, keep0 = _clamped_slab(x, halo, mesh)
+    elif edges == "replicate":
+        slab, keep0 = _exchange_halo(x, halo, mesh), halo
+    else:
+        above, below = exchange_rows(mesh, x, halo)
+        slab = torch.cat([t for t in (above, x, below) if t is not None],
+                         dim=-2)
+        keep0 = 0 if above is None else halo
+    return slab, keep0, mesh.coords["space"] * band - keep0
+
+
+def stream_halo(p: FarnebackParams, hw: "tuple[int, int] | None" = None
+                ) -> int:
+    """The halo rows of preset p's slabs: at each level k the reach of
+    one pixel's flow in level pixels, the applicability's 2.5 sigma
+    (ceil) plus the window blur's half-width per iteration plus the warp
+    residual, scaled by 2^k (1 / pyr_scale^k) and summed over the levels,
+    rounded up to a multiple of 4 * 2^levels so that every level of the
+    slab's pyramid starts on a row of the frame's. hw (the frame size)
+    picks the residual and iterations as the engine does (the >= 1 MP
+    overrides). For the legacy preset (3 levels, poly_n 15 at sigma 1.2,
+    box 3 x 2 iterations, residual 4): 3 + 2 + 4 = 9 level pixels, 9 x
+    (1 + 2 + 4) = 63 -> 64 rows."""
+    wr, it_sched = _residual_schedule(*(hw or (0, 0)), p)
+    rows = 0.0
+    for k in range(p.levels + 1):
+        reach = (math.ceil(2.5 * p.poly_sigma) +
+                 (p.winsize // 2) * _level_iters(p, it_sched, k) +
+                 _per_level(wr, k))
+        rows += reach / p.pyr_scale ** k
+    step = 4 * round(1 / p.pyr_scale ** p.levels)
+    return int(-(-math.ceil(rows) // step) * step)
+
+
+def _frame_slab(mesh: Mesh, origin: int, band: int) -> Slab:
+    """The engine's Slab of this rank's slab inside the frame: its origin,
+    the rank's own band rows and the group's sum, so its warp bases are
+    the whole frame's."""
+    start = mesh.coords["space"] * band
+    return Slab(origin, mesh.space * band, (start, start + band),
+                lambda t: space_all_reduce(mesh, t, label="K1 base sums"))
+
+
+class SpatialStream(NamedTuple):
+    """A rank's carried slab state: the previous frame's expansion tables
+    of this rank's slab."""
+    exp: tuple
+
+
+def spatial_stream_init(band: torch.Tensor, p: FarnebackParams,
+                        mesh: Mesh, halo: int) -> SpatialStream:
+    """The stream state from this rank's (band, W) rows of the first
+    frame (one halo exchange). The slabs end at the frame's edges
+    (``slab_of`` with edges="frame"); the halo comes from the two ring
+    neighbours only, so it must fit in one band."""
+    if halo > band.shape[0]:
+        raise ValueError(f"halo={halo} exceeds the per-shard row band "
+                         f"({band.shape[0]}); use fewer shards or a taller "
+                         f"frame")
+    slab, _, origin = slab_of(band, halo, mesh, "frame")
+    return SpatialStream(farneback_precompute(
+        slab, p, _frame_slab(mesh, origin, band.shape[0])))
+
+
+def spatial_stream_step(state: SpatialStream, band: torch.Tensor,
+                        p: FarnebackParams, mesh: Mesh, halo: int):
+    """One stream step with the frame's rows split over the 'space' axis:
+    this rank's (band, W) rows of the next frame -> (the band's flow
+    (band, W, 2), the new state). The new frame's halo rows are exchanged
+    with the ring neighbours; the slab's expansions are made once and
+    carried to the next step, so a step runs the stream's kernels once
+    on a slab of band + 2 * halo rows (K5/K6 per level, the level loop)."""
+    slab, keep0, origin = slab_of(band, halo, mesh, "frame")
+    flow, exp = farneback_stream(state.exp, slab, p,
+                                 slab=_frame_slab(mesh, origin,
+                                                  band.shape[0]))
+    return flow[keep0:keep0 + band.shape[0]], SpatialStream(exp)
+
+
 def farneback_spatial(prev: torch.Tensor, nxt: torch.Tensor,
                       p: FarnebackParams, mesh: Mesh,
                       halo: int = 128) -> torch.Tensor:
@@ -114,11 +227,10 @@ def farneback_spatial(prev: torch.Tensor, nxt: torch.Tensor,
     rank of the row passes the same band height; ``shard_streams`` checks
     that the frame height divides). Returns this band's flow (band, W, 2)
     float32. The halo is exchanged with the two ring neighbours only, so
-    it must fit in one band. The tiled engine (warp_impl="tiled") keeps
-    the interior within float noise of one process's farneback; the
-    fused engine, windowed()'s default, does not yet (its row tiles
-    follow the slab's height: at 1080p on 2 ranks 8.8% of interior
-    pixels differ by more than 0.1 px)."""
+    it must fit in one band. Both engines keep the interior within float
+    noise of one process's farneback (the slab passes its place in the
+    frame, so the block grids are the frame's; the clamped slabs also
+    sum the fused engine's bases over the group)."""
     if prev.shape != nxt.shape or prev.dtype != nxt.dtype:
         raise ValueError(f"prev {prev.dtype} {tuple(prev.shape)} and nxt "
                          f"{nxt.dtype} {tuple(nxt.shape)} differ")
@@ -131,10 +243,8 @@ def farneback_spatial(prev: torch.Tensor, nxt: torch.Tensor,
         # One shard: no halo to exchange, and plain farneback is the
         # exact answer.
         return farneback(prev.float(), nxt.float(), p)
-    x = torch.stack([prev, nxt])
-    if 2 * halo <= band:
-        slab, keep0 = _clamped_slab(x, halo, mesh)
-        return farneback(slab[0].float(), slab[1].float(),
-                         p)[keep0:keep0 + band]
-    slab = _exchange_halo(x, halo, mesh)
-    return farneback(slab[0].float(), slab[1].float(), p)[halo:-halo]
+    slab, keep0, origin = slab_of(torch.stack([prev, nxt]), halo, mesh)
+    place = _frame_slab(mesh, origin, band) if 2 * halo <= band else \
+        Slab(origin, n * band)
+    return farneback(slab[0].float(), slab[1].float(), p,
+                     slab=place)[keep0:keep0 + band]

@@ -82,18 +82,34 @@ def to_device(raw, device: torch.device) -> torch.Tensor:
 
 
 def prep_frame(raw_bgr_u8: torch.Tensor, cfg: ModeConfig,
-               first: bool = False):
+               first: bool = False, rows: "tuple[int, int] | None" = None,
+               src: "tuple[int, int] | None" = None):
     """Resize to the working resolution + grayscale (main.cpp:142-144);
     first frames use INTER_AREA (main.cpp:125). -> (resized BGR, gray).
 
     Gray-input modes (GRAY_INPUT) may be fed 2-D gray frames; the colour
-    canvas is then None (those modes never read it)."""
+    canvas is then None (those modes never read it).
+
+    A row band (a mode step split over a 'space' group): rows=(i0, i1)
+    returns only those rows of the working frame, resizing only the
+    source rows they read; raw then holds source rows [a0, a0 + its
+    height) of a src_h-row frame, src=(a0, src_h) (default: the whole
+    frame). A first frame is resized whole and cut, so its band equals
+    the whole frame's rows bit for bit whatever the weights."""
+    target = (cfg.ydim, cfg.xdim)
+    if rows is not None and first:
+        resized, gray = prep_frame(raw_bgr_u8, cfg, first=True)
+        cut = slice(*rows)
+        return (None if resized is None else resized[cut]), gray[cut]
     resize = resize_area if first else resize_bilinear
+    band = {} if rows is None else {"rows": tuple(rows), "src": src}
     if raw_bgr_u8.dim() == 2:
-        if tuple(raw_bgr_u8.shape) == (cfg.ydim, cfg.xdim):
-            return None, raw_bgr_u8
-        return None, resize(raw_bgr_u8, (cfg.ydim, cfg.xdim))
-    resized = resize(raw_bgr_u8, (cfg.ydim, cfg.xdim))
+        a0, src_h = src or (0, raw_bgr_u8.shape[0])
+        if (src_h, raw_bgr_u8.shape[1]) == target:
+            return None, (raw_bgr_u8 if rows is None else
+                          raw_bgr_u8[rows[0] - a0:rows[1] - a0])
+        return None, resize(raw_bgr_u8, target, **band)
+    resized = resize(raw_bgr_u8, target, **band)
     return resized, bgr_to_gray(resized)
 
 
@@ -157,11 +173,33 @@ MODES: Dict[str, Callable] = {}
 # frames.
 GRAY_INPUT: set = set()
 
+# Modes with a space form: factory(cfg, device, mesh=mesh) with
+# mesh.space > 1 splits the step's rows over the mesh's 'space' group;
+# init takes the whole first frame, step(state, raw, src=None) a frame
+# or its source rows (``prep_frame``'s `src`) and returns the band's
+# output rows.
+SPACE_MODES: set = set()
 
-def register(name: str, gray_input: bool = False):
+
+def register(name: str, gray_input: bool = False, space: bool = False):
     def deco(fn):
         MODES[name] = fn
         if gray_input:
             GRAY_INPUT.add(name)
+        if space:
+            SPACE_MODES.add(name)
         return fn
     return deco
+
+
+def space_rows(cfg: ModeConfig, mesh) -> "tuple[int, int] | None":
+    """This rank's rows [i0, i1) of the working frame when `mesh` splits
+    rows over a 'space' group of more than one rank, else None."""
+    if mesh is None or mesh.space == 1:
+        return None
+    if cfg.ydim % mesh.space:
+        raise ValueError(f"--mesh-space {mesh.space} does not divide the "
+                         f"frame height {cfg.ydim}")
+    band = cfg.ydim // mesh.space
+    i0 = mesh.coords["space"] * band
+    return i0, i0 + band

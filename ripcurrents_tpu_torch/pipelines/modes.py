@@ -44,12 +44,14 @@ from ripcurrents_tpu_torch.ops.color import hsv_to_bgr, rgb_to_hsv
 from ripcurrents_tpu_torch.ops.colormap import apply_colormap
 from ripcurrents_tpu_torch.ops.image import bgr_to_gray
 from ripcurrents_tpu_torch.ops.warp import translate
+from ripcurrents_tpu_torch.parallel.mesh import (space_all_reduce,
+                                                 space_gather_rows)
 from ripcurrents_tpu_torch.pipelines.common import (FlowStream, ModeConfig,
                                                     fb_preset,
                                                     flow_stream_init,
                                                     flow_stream_step,
                                                     prep_frame, register,
-                                                    to_device)
+                                                    space_rows, to_device)
 from ripcurrents_tpu_torch.viz import draw
 from ripcurrents_tpu_torch.viz.color import (color_wheel, shear_color_chart,
                                              vector_to_color)
@@ -77,22 +79,56 @@ class TimelinesState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("timelines")
-def timelines(cfg: ModeConfig, device="cuda"):
+@register("timelines", space=True)
+def timelines(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form (mesh.space K > 1; ``common.SPACE_MODES``): each
+    rank resizes its band of the frame, the bands' grays are gathered
+    into the whole frame on every rank (its pyramid is built on each),
+    and each rank tracks through K3 only the vertices whose row lies in
+    its band (the edge bands take those above and below the frame); one
+    sum over the group gives every rank all vertices. A vertex's track
+    does not depend on the others, so the vertices and the drawn band
+    equal the one-process step's bit for bit. Picking a rank's vertices
+    reads their count on the host (one wait on the card a frame)."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True,
+                             rows=rows)
         tl = parts.timeline_init(cfg.timeline_start, cfg.timeline_end,
                                  cfg.timeline_vertices, dev)
-        return TimelinesState(gray, tl, _frame_zero(dev))
+        return TimelinesState(space_gather_rows(mesh, gray, "gray bands")
+                              if rows else gray, tl, _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
-        tl = parts.timeline_step(state.timeline, state.prev_gray, gray,
-                                 cfg.lk)
-        out = draw.draw_polyline(resized, tl.vertices, RED, thickness=2)
-        out = draw.draw_circles(out, tl.vertices, 4, BLUE)
+    def track(state, gray):
+        if rows is None:
+            return parts.timeline_step(state.timeline, state.prev_gray,
+                                       gray, cfg.lk)
+        verts = state.timeline.vertices
+        band = rows[1] - rows[0]
+        owner = torch.clamp(torch.div(torch.floor(verts[:, 1]), band,
+                                      rounding_mode="floor"),
+                            0, mesh.space - 1)
+        mine = torch.nonzero(owner == mesh.coords["space"]).squeeze(1)
+        new = torch.zeros_like(verts)
+        if mine.numel():
+            new[mine] = parts.timeline_step(
+                parts.TimelineState(verts[mine]), state.prev_gray, gray,
+                cfg.lk).vertices
+        return parts.TimelineState(space_all_reduce(mesh, new,
+                                                    label="vertices"))
+
+    def step(state, raw, src=None):
+        resized, gray = prep_frame(to_device(raw, dev), cfg, rows=rows,
+                                   src=src)
+        if rows is not None:
+            gray = space_gather_rows(mesh, gray, "gray bands")
+        tl = track(state, gray)
+        row0 = 0 if rows is None else rows[0]
+        out = draw.draw_polyline(resized, tl.vertices, RED, thickness=2,
+                                 band=(row0, cfg.ydim))
+        out = draw.draw_circles(out, tl.vertices, 4, BLUE, row0=row0)
         return TimelinesState(gray, tl, state.framecount + 1), out
 
     return init, step
@@ -219,9 +255,10 @@ def flow_red_points(cfg: ModeConfig, device="cuda"):
 
 
 def _advect_and_draw_trails(seeds, overlay_u8, flow, framecount, cfg,
-                            dt=0.1, iters=100, upper=45.0):
+                            dt=0.1, iters=100, upper=45.0, band=None):
     """Advance seeds through `flow`, drawing their trails onto the
-    persistent 8-bit canvas with intensity framecount*255/totalframes.
+    persistent 8-bit canvas with intensity framecount*255/totalframes
+    (a row band of it with band=(row0, frame_h), ``draw.draw_segments``).
     Raises ValueError when cfg.total_frames is not positive (a source
     without a length gives the runner no count)."""
     if cfg.total_frames <= 0:
@@ -238,7 +275,7 @@ def _advect_and_draw_trails(seeds, overlay_u8, flow, framecount, cfg,
     overlay_u8 = draw.draw_segments(
         overlay_u8, res.points[:, :-1].reshape(-1, 2),
         res.points[:, 1:].reshape(-1, 2),
-        (valid[:, :-1] & valid[:, 1:]).reshape(-1), shade)
+        (valid[:, :-1] & valid[:, 1:]).reshape(-1), shade, band=band)
     return res.final, overlay_u8
 
 

@@ -55,6 +55,7 @@ import torch
 from ripcurrents_tpu_torch import resolve_device
 from ripcurrents_tpu_torch.io import native as io_native
 from ripcurrents_tpu_torch.io import video as io_video
+from ripcurrents_tpu_torch.ops.image import band_source_rows
 from ripcurrents_tpu_torch.pipelines.common import (GRAY_INPUT, MODES,
                                                     ModeConfig)
 # mode registration side effects
@@ -136,14 +137,16 @@ def _have_cv2() -> bool:
 
 def _chunk_source(frames_iter, chunk: int, frame_skip: int,
                   max_frames: Optional[int], pump, prefetch: int = 3,
-                  gray_hw: "Optional[tuple]" = None):
+                  gray_hw: "Optional[tuple]" = None,
+                  crop: "Optional[tuple]" = None):
     """Decode (and optionally host-prep) frames on a producer thread,
     yielding (T<=chunk, H, W, 3) uint8 stacks, or (T<=chunk, H, W) gray
     stacks for gray-input modes (`gray_hw` = target (ydim, xdim)): resize
     (cv2 INTER_LINEAR, only where the frame is not at the target size) +
     BGR2GRAY run on the host (the reference's ops and order,
-    main.cpp:493-494), cutting upload bytes 3x. Closing the generator
-    stops the producer and the pump."""
+    main.cpp:493-494), cutting upload bytes 3x. `crop` = (a, b) keeps
+    only decoded rows [a, b) (a row band's source rows). Closing the
+    generator stops the producer and the pump."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -173,6 +176,8 @@ def _chunk_source(frames_iter, chunk: int, frame_skip: int,
                 skip += 1
                 if skip % frame_skip:  # android-style decode subsampling
                     continue
+                if crop is not None:
+                    f = f[crop[0]:crop[1]]
                 if pump is not None:
                     pump.push(f)
                 else:
@@ -254,27 +259,61 @@ def _device_prefetch(gen, timer, device: torch.device, depth: int = 1):
     yield from buf
 
 
+def _band_pump_rows(raw_h: int, ydim: int, rows) -> "Optional[tuple]":
+    """Source rows [a, b) whose resize to rows[1] - rows[0] rows equals
+    rows [i0, i1) of the whole raw_h -> ydim resize, or None: a
+    downscale whose band edges fall on source rows (i * raw_h / ydim
+    whole), so the band's source-to-output map is the frame's shifted by
+    a whole number of rows."""
+    i0, i1 = rows
+    if raw_h < ydim or (i0 * raw_h) % ydim or (i1 * raw_h) % ydim:
+        return None
+    return i0 * raw_h // ydim, i1 * raw_h // ydim
+
+
 def _open_source(mode: str, frames_iter, first: np.ndarray, cfg: ModeConfig,
                  video_in: str, chunk: int, max_frames: Optional[int],
-                 frame_skip: int, host_prep: bool):
+                 frame_skip: int, host_prep: bool,
+                 rows: "Optional[tuple]" = None):
     """One stream's chunk source (``_chunk_source``) after its first
     frame: the frame pump when `host_prep` and the source is a file not
     at the target size (and the pump builds); gray chunks for gray-input
     modes where the host can make them (the pump's, frames at the target
     size, or cv2 resizing others; else the mode's own device prep does it
-    from BGR). -> (source, pump or None, gray_in)."""
+    from BGR). -> (source, pump or None, gray_in, src).
+
+    rows=(i0, i1), a space step's band: the source yields only what the
+    band needs, and `src` = (a0, src_h) places it for the step
+    (``prep_frame``): the pump's band when the band's source rows resize
+    to it exactly (``_band_pump_rows``; src = (i0, ydim)), else the
+    source rows the device resize reads (src = (a, raw_h)). None
+    without rows."""
     target = (cfg.ydim, cfg.xdim)
-    pump = None
-    if host_prep and video_in != "-" and first.shape[:2] != target and \
-            io_native.available():
+    pump = crop = src = None
+    want_pump = host_prep and video_in != "-" and \
+        first.shape[:2] != target and io_native.available()
+    if rows is not None:
+        raw_h = first.shape[0]
+        pumped = _band_pump_rows(raw_h, cfg.ydim, rows) if want_pump \
+            else None
+        if pumped is not None:
+            crop, src = pumped, (rows[0], cfg.ydim)
+            pump = io_native.FramePump(
+                (pumped[1] - pumped[0], first.shape[1]),
+                (rows[1] - rows[0], cfg.xdim), threads=2,
+                capacity=4 * chunk)
+        else:
+            crop = band_source_rows(raw_h, cfg.ydim, tuple(rows))
+            src = (crop[0], raw_h)
+    elif want_pump:
         pump = io_native.FramePump(first.shape[:2], target, threads=2,
                                    capacity=4 * chunk)
-    gray_in = mode in GRAY_INPUT and (pump is not None or
-                                      first.shape[:2] == target or
-                                      _have_cv2())
+    gray_in = rows is None and mode in GRAY_INPUT and (
+        pump is not None or first.shape[:2] == target or _have_cv2())
     source = _chunk_source(frames_iter, chunk, frame_skip, max_frames,
-                           pump, gray_hw=target if gray_in else None)
-    return source, pump, gray_in
+                           pump, gray_hw=target if gray_in else None,
+                           crop=crop)
+    return source, pump, gray_in, src
 
 
 def _download(outs: list, ready, side) -> "tuple[np.ndarray, object]":
@@ -295,12 +334,14 @@ def _download(outs: list, ready, side) -> "tuple[np.ndarray, object]":
     return host.numpy(), done
 
 
-def _run_chunks(feeds: list, states: list, step, device: torch.device,
-                timer, need_frames: bool, on_chunk) -> list:
+def _run_chunks(feeds: list, states: list, steps: list,
+                device: torch.device, timer, need_frames: bool,
+                on_chunk) -> list:
     """The chunk pipeline of ``run_video`` (one stream) and ``run_videos``
     (N streams): steps the streams' uploaded chunks (one
-    ``_device_prefetch`` feed each) in lock-step, each stream's frame k
-    before any stream's frame k + 1, and calls on_chunk(hosts, states, t)
+    ``_device_prefetch`` feed and one step function each) in lock-step,
+    each stream's frame k before any stream's frame k + 1, and calls
+    on_chunk(hosts, states, t)
     for each chunk once the card is done with it: hosts = each stream's
     (t, ...) output frames in host memory (downloaded on a side stream),
     or None when not `need_frames` (nothing is downloaded); states = the
@@ -342,7 +383,7 @@ def _run_chunks(feeds: list, states: list, step, device: torch.device,
             outs = [[] for _ in chunks]
             for k in range(t):
                 for i, (frames, _, _) in enumerate(chunks):
-                    states[i], out = step(states[i], frames[k])
+                    states[i], out = steps[i](states[i], frames[k])
                     outs[i].append(out)
             if cuda:
                 ready = torch.cuda.Event()
@@ -425,9 +466,9 @@ def run_video(mode: str, video_in: str, video_out: Optional[str],
             print(f"resumed at frame {frames_done} from {resume}",
                   flush=True)
 
-    source, pump, gray_in = _open_source(mode, frames_iter, first, cfg,
-                                         video_in, chunk, max_frames,
-                                         frame_skip, host_prep)
+    source, pump, gray_in, _ = _open_source(mode, frames_iter, first, cfg,
+                                            video_in, chunk, max_frames,
+                                            frame_skip, host_prep)
     last_ckpt = 0
     # cv2.imshow on a displayless host aborts the process inside Qt (not a
     # catchable Python exception), so gate on $DISPLAY up front.
@@ -467,7 +508,7 @@ def run_video(mode: str, video_in: str, video_out: Optional[str],
     t0 = time.perf_counter()
     try:
         state, = _run_chunks([_device_prefetch(source, timer, dev)],
-                             [state], step, dev, timer, need_frames,
+                             [state], [step], dev, timer, need_frames,
                              on_chunk)
     finally:
         source.close()      # stops the producer before the reader goes

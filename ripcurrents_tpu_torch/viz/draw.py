@@ -66,14 +66,18 @@ def _scatter_points(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
 
 
 def draw_segments(img: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor,
-                  valid: torch.Tensor, color,
-                  thickness: int = 1) -> torch.Tensor:
-    """Draw N segments p0[i] -> p1[i] ((N, 2) (x, y) float) where valid[i]."""
-    t = _linspace01(_seg_samples(img.shape[0], img.shape[1]),
+                  valid: torch.Tensor, color, thickness: int = 1,
+                  band: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """Draw N segments p0[i] -> p1[i] ((N, 2) (x, y) float) where valid[i].
+    band=(row0, frame_h): img is rows [row0, row0 + its height) of a
+    frame_h-row frame, the points in frame coordinates; it gets the
+    pixels of those rows that drawing on the whole frame sets."""
+    row0, frame_h = band or (0, img.shape[0])
+    t = _linspace01(_seg_samples(frame_h, img.shape[1]),
                     img.device)[None, :, None]
     pts = p0[:, None, :] * (1 - t) + p1[:, None, :] * t      # (N, S, 2)
     xs = torch.round(pts[..., 0]).to(torch.int32)
-    ys = torch.round(pts[..., 1]).to(torch.int32)
+    ys = torch.round(pts[..., 1]).to(torch.int32) - row0
     v = valid[:, None].expand(xs.shape)
     for dy, dx in _thickness_offsets(thickness):
         img = _scatter_points(img, ys + int(dy), xs + int(dx), v, color)
@@ -82,24 +86,27 @@ def draw_segments(img: torch.Tensor, p0: torch.Tensor, p1: torch.Tensor,
 
 def draw_polyline(img: torch.Tensor, pts: torch.Tensor, color,
                   thickness: int = 1,
-                  valid: "torch.Tensor | None" = None) -> torch.Tensor:
+                  valid: "torch.Tensor | None" = None,
+                  band: "tuple[int, int] | None" = None) -> torch.Tensor:
     """Connect consecutive points of pts (N, 2); segment i is drawn when
-    both of its endpoints are valid."""
+    both of its endpoints are valid. `band` as ``draw_segments``."""
     if valid is None:
         valid = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
     return draw_segments(img, pts[:-1], pts[1:], valid[:-1] & valid[1:],
-                         color, thickness)
+                         color, thickness, band)
 
 
 def draw_circles(img: torch.Tensor, centers: torch.Tensor, radius: int,
-                 color, valid: "torch.Tensor | None" = None) -> torch.Tensor:
-    """Filled circles at centers (N, 2) (x, y), rounded half to even."""
+                 color, valid: "torch.Tensor | None" = None,
+                 row0: int = 0) -> torch.Tensor:
+    """Filled circles at centers (N, 2) (x, y), rounded half to even; img
+    may be rows [row0, ...) of the frame the centers are in."""
     if valid is None:
         valid = torch.ones(centers.shape[0], dtype=torch.bool,
                            device=centers.device)
     c = torch.round(centers).long()
     offs = torch.from_numpy(_disc_offsets(radius)).to(centers.device).long()
-    ys = c[:, 1, None] + offs[None, :, 0]
+    ys = c[:, 1, None] + offs[None, :, 0] - row0
     xs = c[:, 0, None] + offs[None, :, 1]
     return _scatter_points(img, ys, xs, valid[:, None].expand(ys.shape),
                            color)

@@ -177,4 +177,7 @@ def test_port_imports_no_jax():
         "analysis.shear", "viz.color", "viz.draw", "pipelines.modes",
         "convert", "trace_legacy", "bench_warp", "parallel.mesh",
         "parallel.spatial", "parallel.distributed",
-        "pipelines.multirunner")} <= mods
+        "pipelines.multirunner", "flow.fused_update", "flow.farneback",
+        "kernels", "ops.image", "ops.hist", "ops.morphology",
+        "dynamics.advect", "pipelines.common", "pipelines.legacy",
+        "pipelines.runner", "cli")} <= mods
