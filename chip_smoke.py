@@ -175,7 +175,15 @@ Every phase passes or raises (the script catches nothing):
    rank (K5/K6 3, K1/K1b/K2 6, K4 2 a legacy frame; K3 1 a timelines
    frame) and the slab height band + 2 x halo (368); ms a frame per rank,
    the exchanges' ms and bytes a frame, beside one process's run of the
-   same clip.
+   same clip;
+16. the particle modes' space forms: streaklines, populationMap and
+   flowRedPoints through ``cli.main --videos <clip> --mesh-space 2`` on
+   2 processes sharing the card, on [15]'s clip, against this process's
+   ``run_frames``: the written frames and both ranks' last states bit
+   for bit; launches per rank within ``SPACE_PARTICLES_PER_FRAME`` (K3 at
+   most once a frame, on the points the rank owns; no other kernel) and
+   K3 on every frame by one rank at least; ms a frame per rank and the
+   exchanges beside one process's run of each mode.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -232,7 +240,7 @@ from ripcurrents_tpu_torch.ops.warp import translate
 from ripcurrents_tpu_torch.parallel import distributed as pdist
 from ripcurrents_tpu_torch.parallel import mesh as pmesh
 from ripcurrents_tpu_torch.parallel import spatial
-from ripcurrents_tpu_torch.pipelines import modes, runner
+from ripcurrents_tpu_torch.pipelines import modes, multirunner, runner
 from ripcurrents_tpu_torch.pipelines.common import (MODES, ModeConfig,
                                                     detector_mask_scan,
                                                     prep_frame)
@@ -1048,24 +1056,38 @@ def check_tiles_new_paths(device):
     return out
 
 
-def device_events(fn, cpu=False, tries=3, chrome_trace=None,
+# The kernel of torch.cuda._sleep, which each profiler session of
+# ``device_events`` launches first: after many sessions in one process,
+# torch.profiler on the card drops the first device record of a session
+# (19 of 20 K8 launches, the first missing; a kernel and a sync ahead of
+# them keep all 20). Its records are left out of what the session returns.
+PRIMER = "spin_kernel"
+
+
+def device_events(fn, cpu=False, tries=5, chrome_trace=None,
                   complete=None) -> list:
     """The CUDA events of one torch.profiler session around fn(), which
     ends in a device sync (with `cpu`, the session records host
-    activity too). A session that records no device event at all, or
-    whose events `complete` (a predicate on them) rejects, lost records
-    (torch.profiler on the card does, now and then): it is repeated, fn
-    run again, at most tries - 1 times, and the script says so; the last
-    session's events are returned. With `chrome_trace` (a path), that
-    session's Chrome trace is written there too."""
+    activity too). The session starts with a short PRIMER kernel and a
+    sync, whose events are left out. A session that records no device
+    event at all, or whose events `complete` (a predicate on them)
+    rejects, lost records (torch.profiler on the card does, now and
+    then): it is repeated, fn run again, at most tries - 1 times, and the
+    script says so; the last session's events are returned. With
+    `chrome_trace` (a path), that session's Chrome trace is written there
+    too (the PRIMER's kernel with it; ``trace_totals`` leaves it out)."""
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     if not torch.cuda.is_available():
         tries = 1                           # no device events to wait for
     for i in range(tries):
         with profile(activities=acts) as prof:
+            if torch.cuda.is_available():
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
             fn()
         events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA and
+                  PRIMER not in e.name]
         if events and (complete is None or complete(events)):
             break
         if i + 1 < tries:
@@ -2235,7 +2257,8 @@ def trace_totals(path) -> dict:
                                      f"size in the trace: {e}")
             d2h.append(int(e["args"]["bytes"]))
     return {"device_ms": sum(e["dur"] for e in events
-                             if e.get("cat") == "kernel") / 1e3,
+                             if e.get("cat") == "kernel" and
+                             PRIMER not in e.get("name", "")) / 1e3,
             "d2h_bytes": d2h}
 
 
@@ -2900,47 +2923,68 @@ def space_recording(rec: dict, slab_fn="spatial_stream_step"):
         yield rec
 
 
-def space_rank(rank, out, device_type, hw, raw_hw, frames):
-    """[15] one of 2 processes sharing the card: ``cli.main --videos <clip>
-    --mesh-space 2`` with the farm's flags (a file:// store per run, so
-    the 'space' group is gloo) on an in-memory clip made from a seed:
-    legacy timed with every counter set to 0 just before, legacy again
-    recording (``space_recording``), then timelines. Writes
-    space_<rank>.json (launches, metrics, slab heights) and this rank's
-    recordings (space_rec_<rank>.pt); rank 0 also the written frames."""
-    torch.set_num_threads(1)
+def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
+    """``cli.main --videos <clips> --mode <mode> --mesh-space 2`` as rank
+    `rank` with the farm's flags (a file:// store `space_<tag>.store` in
+    `out`, so the 'space' group is gloo), --no-host-prep, every counter
+    set to 0 just before; with `rec`, inside ``space_recording``. Rank 0
+    saves the written frames (space_<tag>_s0.npy). Raises unless it
+    exits 0. -> {"launches", "metrics" (rank 0; else None), "state": the
+    stream's last state as numpy arrays (``convert.state_to_numpy``)}."""
     out = pathlib.Path(out)
     h, w = hw
+    store = out / f"space_{tag}.store"
+    metrics = out / f"space_{tag}_metrics.json"
+    argv = [str(out / f"space_{tag}"), "--videos", *clips, "--mode", mode,
+            "--mesh-space", "2", "--coordinator", f"file://{store}",
+            "--num-processes", "2", "--process-id", str(rank),
+            "--no-host-prep", "--xdim", str(w), "--ydim", str(h), "--device",
+            device_type, "--metrics-json", str(metrics)]
+    kept = []
+    real = multirunner.run_videos
+
+    def keeping(*a, **kw):
+        stats = real(*a, **kw)
+        kept.append(stats.state)
+        return stats
+
+    with memory_video(clips) as written, \
+            contextlib.redirect_stdout(io.StringIO()), \
+            _patched(multirunner, "run_videos", keeping), \
+            (space_recording(rec) if rec is not None
+             else contextlib.nullcontext()):
+        reset_all_launches()
+        rc = cli.main(argv)
+        launches = all_launch_counts()
+    torch.distributed.destroy_process_group()
+    if rc != 0:
+        raise AssertionError(f"space rank {rank}: cli.main {mode} exited "
+                             f"{rc}")
+    if rank == 0:
+        for path, got in written.items():
+            np.save(out / f"{pathlib.Path(path).stem}.npy", np.stack(got))
+    (state,), = kept
+    return {"launches": launches,
+            "metrics": json.loads(metrics.read_text())
+            if rank == 0 else None,
+            "state": convert.state_to_numpy(state)}
+
+
+def space_rank(rank, out, device_type, hw, raw_hw, frames):
+    """[15] one of 2 processes sharing the card: ``space_cli`` on an
+    in-memory clip made from a seed: legacy timed with every counter set
+    to 0 just before, legacy again recording (``space_recording``), then
+    timelines. Writes space_<rank>.json (launches, metrics, slab heights)
+    and this rank's recordings (space_rec_<rank>.pt); rank 0 also the
+    written frames."""
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
     clips = _stream_clips(1, frames + 1, raw_hw, 40)
     res = {}
 
     def run(mode, tag, rec=None):
-        store = out / f"space_{tag}.store"
-        metrics = out / f"space_{tag}_metrics.json"
-        argv = [str(out / f"space_{tag}"), "--videos", *clips, "--mode",
-                mode, "--mesh-space", "2", "--coordinator",
-                f"file://{store}", "--num-processes", "2", "--process-id",
-                str(rank), "--no-host-prep", "--xdim", str(w), "--ydim",
-                str(h), "--device", device_type, "--metrics-json",
-                str(metrics)]
-        with memory_video(clips) as written, \
-                contextlib.redirect_stdout(io.StringIO()), \
-                (space_recording(rec) if rec is not None
-                 else contextlib.nullcontext()):
-            reset_all_launches()
-            rc = cli.main(argv)
-            launches = all_launch_counts()
-        torch.distributed.destroy_process_group()
-        if rc != 0:
-            raise AssertionError(f"space rank {rank}: cli.main {mode} "
-                                 f"exited {rc}")
-        if rank == 0:
-            for path, got in written.items():
-                np.save(out / f"{pathlib.Path(path).stem}.npy",
-                        np.stack(got))
-        return {"launches": launches,
-                "metrics": json.loads(metrics.read_text())
-                if rank == 0 else None}
+        r = space_cli(rank, out, clips, mode, tag, device_type, hw, rec)
+        return {"launches": r["launches"], "metrics": r["metrics"]}
 
     res["legacy"] = run("legacy", "legacy")
     rec = collections.defaultdict(list)
@@ -3053,6 +3097,118 @@ def space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
             for x in ranks[0]["timelines"]["metrics"]["space"]["ranks"]],
         "backend": m["space"]["backend"], "halo": m["space"]["halo"],
         "mesh": m["mesh"]}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the particle modes' space forms (--mesh-space 2)
+# ---------------------------------------------------------------------------
+
+PHASE16_TMP = CLI_TMP / "phase16"
+SPACE_PARTICLE_MODES = ("streaklines", "populationMap", "flowRedPoints")
+# Most launches per rank and frame of the particle modes' space forms: K3
+# once on the points the rank owns, none when it owns no point.
+SPACE_PARTICLES_PER_FRAME = {"K1": 0, "K1b": 0, "K2": 0, "K3": 1, "K4": 0,
+                             "K5": 0, "K6": 0, "K7": 0, "K8": 0}
+
+
+def particles_space_rank(rank, out, device_type, hw, raw_hw, frames):
+    """[16] one of 2 processes sharing the card: ``space_cli`` for each of
+    SPACE_PARTICLE_MODES on [15]'s clip. Writes particles_<rank>.json
+    (each mode's launches and rank 0's metrics) and each mode's last
+    state (particles_<mode>_<rank>.npz); rank 0 also the written
+    frames."""
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    res = {}
+    for mode in SPACE_PARTICLE_MODES:
+        r = space_cli(rank, out, clips, mode, mode, device_type, hw)
+        np.savez(out / f"particles_{mode}_{rank}.npz", **r.pop("state"))
+        res[mode] = r
+    (out / f"particles_{rank}.json").write_text(json.dumps(res))
+
+
+def particles_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
+                          frames=FRAMES):
+    """[16] streaklines, populationMap and flowRedPoints in their space
+    form on 2 processes sharing the card (``particles_space_rank``; the
+    kernels are built in this process beforehand) against this
+    process's ``run_frames`` of the same clip: the written frames and
+    both ranks' last states (points, counts, the whole frame's gray)
+    bit for bit; each rank's launches within SPACE_PARTICLES_PER_FRAME a
+    frame, and K3 launched on every frame by one rank at least (off the
+    card no launch). Beside the timings, one process's ``cli.main
+    --videos`` of each mode. Returns what main prints."""
+    out = PHASE16_TMP
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.store"):
+        f.unlink()
+    h, w = hw
+    _spawn_ranks(particles_space_rank,
+                 (str(out), device.type, hw, raw_hw, frames))
+    ranks = [json.loads((out / f"particles_{r}.json").read_text())
+             for r in range(2)]
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    (name, raw), = clips.items()
+    dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type,
+            "--no-host-prep"]
+    most = _launches(device, {k: v * frames for k, v in
+                              SPACE_PARTICLES_PER_FRAME.items()})
+    res, bad = {"modes": {}}, []
+    for mode in SPACE_PARTICLE_MODES:
+        cfg = cli._mode_config(cli.build_parser().parse_args(
+            [name, "--mode", mode, *dims]))
+        stats = runner.RunStats()
+        ref = torch.stack(list(runner.run_frames(
+            mode, raw, cfg, device=device, stats=stats))).cpu().numpy()
+        want = convert.state_to_numpy(stats.state)
+        got = np.load(out / f"space_{mode}_s0.npy")
+        states = [np.load(out / f"particles_{mode}_{r}.npz")
+                  for r in range(2)]
+        k3 = [r[mode]["launches"]["K3"] for r in ranks]
+        m = {"frames_equal": bool(got.shape == ref.shape and
+                                  np.array_equal(got, ref)),
+             "states_equal": all(
+                 sorted(st.files) == sorted(want) and
+                 all(np.array_equal(st[k], v) for k, v in want.items())
+                 for st in states),
+             "k3_launches": k3,
+             "launches": [r[mode]["launches"] for r in ranks]}
+        if not m["frames_equal"] or not m["states_equal"]:
+            bad.append(f"{mode} frames/states")
+        for r in ranks:
+            over = {k: v for k, v in r[mode]["launches"].items()
+                    if v > most.get(k, 0)}
+            if over:
+                bad.append(f"{mode} launches {over}")
+        if device.type == "cuda" and sum(k3) < frames:
+            bad.append(f"{mode} K3 launched {k3} times over {frames} "
+                       f"frames")
+        metrics = ranks[0][mode]["metrics"]
+        m["timing"] = {
+            "ranks": [{"ms_per_frame": x["ms_per_frame"],
+                       "exchanges_per_frame": x["exchanges_per_frame"],
+                       "exchange_ms_per_frame":
+                           x["exchange_s"] * 1e3 / frames,
+                       "exchange_bytes_per_frame":
+                           x["exchange_bytes_per_frame"],
+                       "output_gather_ms_per_frame":
+                           x["output_gather_s"] * 1e3 / frames,
+                       "by_label_ms_bytes_calls_per_frame": {
+                           k: [v["s"] * 1e3 / frames, v["bytes"] / frames,
+                               v["calls"] / frames]
+                           for k, v in x["exchange_by"].items()}}
+                      for x in metrics["space"]["ranks"]],
+            "backend": metrics["space"]["backend"], "mesh": metrics["mesh"]}
+        res["modes"][mode] = m
+    if bad:
+        raise AssertionError(f"[16] particle space forms: {bad}: {res}")
+    for mode in SPACE_PARTICLE_MODES:
+        single = cli_run([str(out / "single"), "--videos", name, "--mode",
+                          mode, *dims], clips)
+        res["modes"][mode]["timing"]["one_process_ms_per_frame"] = \
+            single["metrics"]["seconds"] * 1e3 / frames
     return res
 
 
@@ -4253,6 +4409,45 @@ def main() -> int:
     rows.append(k1b_row(dev, sf["ranks"][0]["legacy"]["launches"]["K1b"],
                         slab_devs["k1b_rel"], per_rank["K1b"]))
     print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ps = particles_space_phase(dev)
+    for mode, m in ps["modes"].items():
+        tm = m["timing"]
+        print(f"[16] cli.main --videos --mesh-space 2 --mode {mode}, 2 "
+              f"processes sharing the card ({tm['backend']}), mesh "
+              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
+              f"640x480: frames bit for bit equal to run_frames "
+              f"({m['frames_equal']}), both ranks' last states equal "
+              f"({m['states_equal']}); K3 launches per rank "
+              f"{m['k3_launches']} of {FRAMES} frames (" + ", ".join(
+                  f"rank {r} " + ("owned no point on any frame" if n == 0
+                                  else "owned points on every frame"
+                                  if n == FRAMES else
+                                  f"owned no point on {FRAMES - n} frames")
+                  for r, n in enumerate(m["k3_launches"])) +
+              f"); every other kernel 0")
+        print(f"[16] {mode} ms a frame per rank (host clock): "
+              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+              f"exchanges per rank and frame: " + "; ".join(
+                  f"{x['exchanges_per_frame']:.3f} calls, "
+                  f"{x['exchange_ms_per_frame']:.3f} ms, "
+                  f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
+                  f"{x['output_gather_ms_per_frame']:.3f} ms)"
+                  for x in tm["ranks"]) + f"; card: {card}")
+        for r, x in enumerate(tm["ranks"]):
+            print(f"[16] {mode} rank {r} exchanges by kind (ms, bytes, "
+                  f"calls a frame): " + "; ".join(
+                      f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
+                      for k, v in
+                      x["by_label_ms_bytes_calls_per_frame"].items()))
+    for i, k in enumerate(K_ROWS):
+        for mode, m in ps["modes"].items():
+            rows[i]["launches_by_space_path"][
+                f"{mode} --mesh-space 2, per frame on each rank"] = [
+                    r[k] / FRAMES for r in m["launches"]]
+    print(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

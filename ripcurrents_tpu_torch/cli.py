@@ -17,7 +17,8 @@ N --process-id I` makes each of N processes one member of a stream farm
 own videos. `--mesh-space K > 1` with the farm's flags splits each
 frame's rows over K processes (a world of S x K: S stream groups of K
 ranks, all running the same command with the same videos); it runs the
-modes with a space form (legacy, timelines) and exits 2 for the others.
+modes with a space form (legacy, timelines, streaklines, populationMap,
+flowRedPoints: ``common.SPACE_MODES``) and exits 2 for the others.
 """
 
 from __future__ import annotations

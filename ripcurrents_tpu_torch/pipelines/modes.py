@@ -79,52 +79,81 @@ class TimelinesState(NamedTuple):
     framecount: torch.Tensor
 
 
+def owned_points(pts: torch.Tensor, rows: "tuple[int, int]",
+                 frame_h: int) -> torch.Tensor:
+    """Which of pts (N, 2) (x, y) the rank holding rows [i0, i1) of a
+    frame_h-row frame tracks, as a bool (N,): those whose row (floor(y))
+    lies in its band; the first band also takes the rows above the frame
+    and NaN rows, the last band those at or below its bottom. Each point
+    goes to exactly one band of a frame cut into bands."""
+    y = torch.floor(pts[:, 1])
+    own = (y >= rows[0]) & (y < rows[1])
+    if rows[0] == 0:
+        own |= (y < 0) | torch.isnan(y)
+    if rows[1] == frame_h:
+        own |= y >= frame_h
+    return own
+
+
+def track_points(pts: torch.Tensor, prev_gray: torch.Tensor,
+                 gray: torch.Tensor, p: LKParams, mesh=None,
+                 rows: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """pyr_lk's tracked points (N, 2) of pts from prev_gray to gray.
+
+    On a 'space' group (`rows`, this rank's band of ``space_rows``; the
+    grays are the whole frames) each rank tracks through K3 only the
+    points ``owned_points`` gives it, with no launch when it owns none,
+    and one sum over the group gives every rank all points. The other
+    ranks' entries are -0.0, which added to any float leaves it as it is
+    (NaN, 0.0 and -0.0 included), so the sum equals one process's call
+    bit for bit: a point's track does not depend on the others. Picking
+    a rank's points reads their count on the host (one wait on the card
+    a call)."""
+    if rows is None:
+        return pyr_lk(prev_gray, gray, pts, p).points
+    mine = torch.nonzero(owned_points(pts, rows, gray.shape[-2])).squeeze(1)
+    new = torch.full_like(pts, -0.0)
+    if mine.numel():
+        new[mine] = pyr_lk(prev_gray, gray, pts[mine], p).points
+    return space_all_reduce(mesh, new, label="vertices")
+
+
+def _space_prep(raw, cfg: ModeConfig, dev, mesh, rows, src=None,
+                first=False):
+    """``prep_frame`` of this rank's band (`rows`, ``space_rows``) ->
+    (the band of the resized frame, the whole frame's gray: the bands'
+    grays gathered over the 'space' group); prep_frame's own with rows
+    None."""
+    resized, gray = prep_frame(to_device(raw, dev), cfg, first=first,
+                               rows=rows, src=src)
+    if rows is not None:
+        gray = space_gather_rows(mesh, gray, "gray bands")
+    return resized, gray
+
+
 @register("timelines", space=True)
 def timelines(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form (mesh.space K > 1; ``common.SPACE_MODES``): each
     rank resizes its band of the frame, the bands' grays are gathered
     into the whole frame on every rank (its pyramid is built on each),
     and each rank tracks through K3 only the vertices whose row lies in
-    its band (the edge bands take those above and below the frame); one
-    sum over the group gives every rank all vertices. A vertex's track
-    does not depend on the others, so the vertices and the drawn band
-    equal the one-process step's bit for bit. Picking a rank's vertices
-    reads their count on the host (one wait on the card a frame)."""
+    its band (``track_points``); one sum over the group gives every rank
+    all vertices, and each draws its band. The vertices and the drawn
+    band equal the one-process step's bit for bit."""
     dev = resolve_device(device)
     rows = space_rows(cfg, mesh)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True,
-                             rows=rows)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         tl = parts.timeline_init(cfg.timeline_start, cfg.timeline_end,
                                  cfg.timeline_vertices, dev)
-        return TimelinesState(space_gather_rows(mesh, gray, "gray bands")
-                              if rows else gray, tl, _frame_zero(dev))
-
-    def track(state, gray):
-        if rows is None:
-            return parts.timeline_step(state.timeline, state.prev_gray,
-                                       gray, cfg.lk)
-        verts = state.timeline.vertices
-        band = rows[1] - rows[0]
-        owner = torch.clamp(torch.div(torch.floor(verts[:, 1]), band,
-                                      rounding_mode="floor"),
-                            0, mesh.space - 1)
-        mine = torch.nonzero(owner == mesh.coords["space"]).squeeze(1)
-        new = torch.zeros_like(verts)
-        if mine.numel():
-            new[mine] = parts.timeline_step(
-                parts.TimelineState(verts[mine]), state.prev_gray, gray,
-                cfg.lk).vertices
-        return parts.TimelineState(space_all_reduce(mesh, new,
-                                                    label="vertices"))
+        return TimelinesState(gray, tl, _frame_zero(dev))
 
     def step(state, raw, src=None):
-        resized, gray = prep_frame(to_device(raw, dev), cfg, rows=rows,
-                                   src=src)
-        if rows is not None:
-            gray = space_gather_rows(mesh, gray, "gray bands")
-        tl = track(state, gray)
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
+        tl = parts.TimelineState(track_points(
+            state.timeline.vertices, state.prev_gray, gray, cfg.lk, mesh,
+            rows))
         row0 = 0 if rows is None else rows[0]
         out = draw.draw_polyline(resized, tl.vertices, RED, thickness=2,
                                  band=(row0, cfg.ydim))
@@ -146,13 +175,18 @@ class StreaklinesState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("streaklines")
-def streaklines(cfg: ModeConfig, device="cuda"):
+@register("streaklines", space=True)
+def streaklines(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form as timelines': every system's vertices in one
+    ``track_points`` call (one K3 launch a rank), the systems advanced
+    from the summed points on every rank, each rank drawing its band."""
     dev = resolve_device(device)
     n, cap = cfg.max_streaklines, cfg.streakline_capacity
+    rows = space_rows(cfg, mesh)
+    row0 = 0 if rows is None else rows[0]
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         gen = torch.Generator().manual_seed(cfg.seed)
         gens = torch.floor(
             torch.rand((n, 2), generator=gen) *
@@ -161,21 +195,24 @@ def streaklines(cfg: ModeConfig, device="cuda"):
             gray, gens, gens[:, None, :].repeat(1, cap, 1),
             torch.ones(n, dtype=torch.int32, device=dev), _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         # one shared tracker call over the vertices of every system
-        res = pyr_lk(state.prev_gray, gray, state.verts.reshape(n * cap, 2),
-                     cfg.lk)
+        tracked = track_points(state.verts.reshape(n * cap, 2),
+                               state.prev_gray, gray, cfg.lk, mesh, rows)
         st = parts.streakline_advance(
             parts.StreaklineState(state.gens, state.verts, state.count),
-            res.points.reshape(n, cap, 2), cfg.xdim, cfg.ydim)
+            tracked.reshape(n, cap, 2), cfg.xdim, cfg.ydim)
         verts, count = st.vertices, st.count
         out = resized
         live = torch.arange(cap, device=dev)[None, :] < count[:, None]
         for i in range(n):
-            out = draw.draw_circles(out, state.gens[i:i + 1], 3, GREEN)
-            out = draw.draw_polyline(out, verts[i], RED, 1, valid=live[i])
-            out = draw.draw_circles(out, verts[i], 2, BLUE, valid=live[i])
+            out = draw.draw_circles(out, state.gens[i:i + 1], 3, GREEN,
+                                    row0=row0)
+            out = draw.draw_polyline(out, verts[i], RED, 1, valid=live[i],
+                                     band=(row0, cfg.ydim))
+            out = draw.draw_circles(out, verts[i], 2, BLUE, valid=live[i],
+                                    row0=row0)
         return StreaklinesState(gray, state.gens, verts, count,
                                 state.framecount + 1), out
 
@@ -192,24 +229,31 @@ class PopulationMapState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("populationMap")
-def population_map(cfg: ModeConfig, device="cuda"):
+@register("populationMap", space=True)
+def population_map(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form as timelines': the vertices through
+    ``track_points``, the dots drawn and blended on the rank's band (the
+    blend is per pixel). A rectangle inside one band leaves the other
+    ranks with no point and no launch."""
     dev = resolve_device(device)
     x0, y0, x1, y1 = cfg.population_rect
+    rows = space_rows(cfg, mesh)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         pop = parts.population_init(
             (x0, y0), (x1, y1), cfg.population_vertices,
             torch.Generator().manual_seed(cfg.seed),
             cfg.population_faithful_bias, dev)
         return PopulationMapState(gray, pop, _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
-        pop = parts.population_step(state.pop, state.prev_gray, gray, cfg.lk)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
+        pop = parts.PopulationState(track_points(
+            state.pop.vertices, state.prev_gray, gray, cfg.lk, mesh, rows))
         # translucent dispersal dots (ripcurrents_module.cpp:1188-1195)
-        overlay = draw.draw_circles(resized, pop.vertices, 10, RED)
+        overlay = draw.draw_circles(resized, pop.vertices, 10, RED,
+                                    row0=0 if rows is None else rows[0])
         out = draw.blend(overlay, resized, 0.5, 0.5)
         return PopulationMapState(gray, pop, state.framecount + 1), out
 
@@ -226,13 +270,16 @@ class RedPointsState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("flowRedPoints")
-def flow_red_points(cfg: ModeConfig, device="cuda"):
-    """An LK-advected red dot cloud seeded on a coarse grid."""
+@register("flowRedPoints", space=True)
+def flow_red_points(cfg: ModeConfig, device="cuda", mesh=None):
+    """An LK-advected red dot cloud seeded on a coarse grid. The space
+    form as timelines': the dots through ``track_points``, each rank
+    drawing its band."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         step_px = max(cfg.xdim // 16, 8)
         ys, xs = np.mgrid[step_px // 2:cfg.ydim:step_px,
                           step_px // 2:cfg.xdim:step_px]
@@ -240,11 +287,13 @@ def flow_red_points(cfg: ModeConfig, device="cuda"):
                                .astype(np.float32)).to(dev)
         return RedPointsState(gray, pts, _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
-        res = pyr_lk(state.prev_gray, gray, state.pts, LKParams.red_points())
-        out = draw.draw_circles(resized, res.points, 2, RED)
-        return RedPointsState(gray, res.points, state.framecount + 1), out
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
+        pts = track_points(state.pts, state.prev_gray, gray,
+                           LKParams.red_points(), mesh, rows)
+        out = draw.draw_circles(resized, pts, 2, RED,
+                                row0=0 if rows is None else rows[0])
+        return RedPointsState(gray, pts, state.framecount + 1), out
 
     return init, step
 

@@ -28,7 +28,8 @@ to stack them for vmap; a loop of per-stream states has nothing to
 stack.
 
 Rows over a 'space' group (`space` K > 1, the modes of
-``common.SPACE_MODES``: legacy and timelines): a world of S x K
+``common.SPACE_MODES``: legacy, timelines and the other particle modes
+streaklines, populationMap and flowRedPoints): a world of S x K
 processes (the farm's flags; every process runs the same command with
 the same videos) forms S 'stream' groups of K 'space' ranks
 (``parallel/mesh.py``). Stream group g runs streams [g N/S, (g+1) N/S);

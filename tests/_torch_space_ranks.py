@@ -1,19 +1,31 @@
-"""Rank entry points for tests/test_torch_space.py: each runs in a process
-of its own (torch.multiprocessing spawn), joins a 2-rank gloo group
-through a file:// store, runs the port's ``run_videos`` with its rows
-split over the two ranks (``space=2``) on the CPU and saves what it
-observed as .npy files in `out`. Imports torch and the port only."""
+"""Rank entry points for tests/test_torch_space.py and
+tests/test_torch_space_particles.py: each runs in a process of its own
+(torch.multiprocessing spawn), joins a 2-rank gloo group through a
+file:// store, runs the port's ``run_videos`` with its rows split over
+the two ranks (``space=2``) on the CPU and saves what it observed as
+.npy files in `out`. Imports torch and the port only."""
 
+import contextlib
 import json
 import pathlib
 
 import numpy as np
 import torch
 
+from ripcurrents_tpu_torch import convert
 from ripcurrents_tpu_torch.io import video as io_video
 from ripcurrents_tpu_torch.parallel import distributed, spatial
 from ripcurrents_tpu_torch.pipelines import multirunner
-from ripcurrents_tpu_torch.pipelines.common import ModeConfig
+from ripcurrents_tpu_torch.pipelines.common import MODES, ModeConfig
+
+# How a mode's initial state takes given points (the JAX init's, which
+# draws them with jax.random).
+SEEDS = {
+    "streaklines": lambda s, p: s._replace(
+        gens=p, verts=p[:, None, :].repeat(1, s.verts.shape[1], 1)),
+    "populationMap": lambda s, p: s._replace(
+        pop=s.pop._replace(vertices=p)),
+}
 
 
 def keeping_writer(store: dict):
@@ -59,6 +71,61 @@ def videos_rank(rank: int, store: str, out: str, mode: str, clips,
                 ModeConfig(**cfg_kw), *live))
     finally:
         torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def seeded(mode: str, points):
+    """MODES[mode] with its init's random points replaced by `points` (a
+    numpy array, ``SEEDS``); None leaves the mode as it is."""
+    factory = MODES[mode]
+
+    def make(cfg, device="cuda", mesh=None):
+        init, step = factory(cfg, device, mesh=mesh)
+
+        def init_seeded(first):
+            state = init(first)
+            return SEEDS[mode](state, torch.tensor(
+                points, device=state.framecount.device))
+        return init_seeded, step
+
+    if points is not None:
+        MODES[mode] = make
+    try:
+        yield
+    finally:
+        MODES[mode] = factory
+
+
+def particles_rank(rank: int, store: str, out: str, points: dict, clips,
+                   cfg_kw: dict, chunk: int):
+    """run_videos(mode, clips, space=2) on the CPU as rank `rank` of 2 for
+    each mode of `points` ({mode: initial points or None, ``seeded``}),
+    saving the frames rank 0 writes (<mode>_s<i>.npy) and every
+    stream's last state (<mode>_state_<rank>.npz, ``s<i>_<field>``)."""
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
+    distributed.init_cluster(f"file://{store}", 2, rank)
+    try:
+        for mode, pts in points.items():
+            kept = {}
+            io_video.VideoWriter = keeping_writer(kept)
+            with seeded(mode, pts):
+                stats = multirunner.run_videos(
+                    mode, clips, str(out / mode), ModeConfig(**cfg_kw),
+                    chunk=chunk, space=2, progress=False, device="cpu")
+            for path, frames in kept.items():
+                np.save(out / f"{pathlib.Path(path).stem}.npy",
+                        np.stack(frames))
+            np.savez(out / f"{mode}_state_{rank}.npz", **final_states(
+                stats.state))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def final_states(states) -> dict:
+    """Each stream's state as numpy arrays: {s<i>_<field>: array}."""
+    return {f"s{i}_{k}": v for i, state in enumerate(states)
+            for k, v in convert.state_to_numpy(state).items()}
 
 
 def live_legacy(cfg: ModeConfig, frames, accumulator, framecount,

@@ -228,6 +228,7 @@ def test_mesh_space_refuses_modes_without_space_form(capsys):
                      *farm]) == 2
     assert cli.main(["a.mp4", "--mode", "legacy", *farm]) == 2
     err = capsys.readouterr().err
-    assert "--mesh-space 2 runs the modes with a space form (legacy, " \
-        "timelines); --mode shearRate has none" in err
+    assert "--mesh-space 2 runs the modes with a space form " \
+        "(flowRedPoints, legacy, populationMap, streaklines, timelines); " \
+        "--mode shearRate has none" in err
     assert "--mesh-space 2 needs --videos" in err
