@@ -183,7 +183,19 @@ Every phase passes or raises (the script catches nothing):
    for bit; launches per rank within ``SPACE_PARTICLES_PER_FRAME`` (K3 at
    most once a frame, on the points the rank owns; no other kernel) and
    K3 on every frame by one rank at least; ms a frame per rank and the
-   exchanges beside one process's run of each mode.
+   exchanges beside one process's run of each mode;
+17. the dense Farneback modes' space forms: subtructAverageVector,
+   subtructAverageVectorWithWindow, shearRate and averageVector (its
+   300-frame ring) through ``cli.main --videos <clip> --mesh-space 2`` on
+   2 processes sharing the card, on [15]'s clip, every rank computing
+   the whole frame's flow from the gathered grays, against this
+   process's ``run_frames``: the written frames and each rank's last
+   state (its rings' rows, ``dense_band_state``; the flow stream, the
+   maximum and the count whole) bit for bit; each rank's launches equal
+   to the one process's (K5/K6 3 a frame and 3 for the first, K1/K2 3 x
+   the preset's iterations, K4 2), K1b, K3, K7 and K8 0; ms a frame per
+   rank and the exchanges by label beside one process's run of each
+   mode.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -3112,6 +3124,25 @@ SPACE_PARTICLES_PER_FRAME = {"K1": 0, "K1b": 0, "K2": 0, "K3": 1, "K4": 0,
                              "K5": 0, "K6": 0, "K7": 0, "K8": 0}
 
 
+def _space_timing(metrics, frames) -> dict:
+    """A space run's metrics (the first rank's) -> each rank's ms a frame
+    and its exchanges a frame, in all and by label."""
+    return {
+        "ranks": [{"ms_per_frame": x["ms_per_frame"],
+                   "exchanges_per_frame": x["exchanges_per_frame"],
+                   "exchange_ms_per_frame": x["exchange_s"] * 1e3 / frames,
+                   "exchange_bytes_per_frame":
+                       x["exchange_bytes_per_frame"],
+                   "output_gather_ms_per_frame":
+                       x["output_gather_s"] * 1e3 / frames,
+                   "by_label_ms_bytes_calls_per_frame": {
+                       k: [v["s"] * 1e3 / frames, v["bytes"] / frames,
+                           v["calls"] / frames]
+                       for k, v in x["exchange_by"].items()}}
+                  for x in metrics["space"]["ranks"]],
+        "backend": metrics["space"]["backend"], "mesh": metrics["mesh"]}
+
+
 def particles_space_rank(rank, out, device_type, hw, raw_hw, frames):
     """[16] one of 2 processes sharing the card: ``space_cli`` for each of
     SPACE_PARTICLE_MODES on [15]'s clip. Writes particles_<rank>.json
@@ -3185,26 +3216,126 @@ def particles_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
         if device.type == "cuda" and sum(k3) < frames:
             bad.append(f"{mode} K3 launched {k3} times over {frames} "
                        f"frames")
-        metrics = ranks[0][mode]["metrics"]
-        m["timing"] = {
-            "ranks": [{"ms_per_frame": x["ms_per_frame"],
-                       "exchanges_per_frame": x["exchanges_per_frame"],
-                       "exchange_ms_per_frame":
-                           x["exchange_s"] * 1e3 / frames,
-                       "exchange_bytes_per_frame":
-                           x["exchange_bytes_per_frame"],
-                       "output_gather_ms_per_frame":
-                           x["output_gather_s"] * 1e3 / frames,
-                       "by_label_ms_bytes_calls_per_frame": {
-                           k: [v["s"] * 1e3 / frames, v["bytes"] / frames,
-                               v["calls"] / frames]
-                           for k, v in x["exchange_by"].items()}}
-                      for x in metrics["space"]["ranks"]],
-            "backend": metrics["space"]["backend"], "mesh": metrics["mesh"]}
+        m["timing"] = _space_timing(ranks[0][mode]["metrics"], frames)
         res["modes"][mode] = m
     if bad:
         raise AssertionError(f"[16] particle space forms: {bad}: {res}")
     for mode in SPACE_PARTICLE_MODES:
+        single = cli_run([str(out / "single"), "--videos", name, "--mode",
+                          mode, *dims], clips)
+        res["modes"][mode]["timing"]["one_process_ms_per_frame"] = \
+            single["metrics"]["seconds"] * 1e3 / frames
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the dense Farneback modes' space forms (--mesh-space 2)
+# ---------------------------------------------------------------------------
+
+PHASE17_TMP = CLI_TMP / "phase17"
+SPACE_DENSE_MODES = ("subtructAverageVector",
+                     "subtructAverageVectorWithWindow", "shearRate",
+                     "averageVector")
+# kernels the dense space forms never launch: the slabs' base sums, the
+# tracker and the portable and tiled warps
+SPACE_DENSE_ZERO = ("K1b", "K3", "K7", "K8")
+
+
+def dense_band_state(state: dict, mode: str, rows, frame_h: int) -> dict:
+    """The part of one process's last state (``convert.state_to_numpy``)
+    that the space rank holding frame rows `rows` keeps: its ring's rows
+    (the band, or for shearRate ``modes.shear_rows``), every other field
+    whole."""
+    s0, s1 = modes.shear_rows(rows, frame_h) if mode == "shearRate" \
+        else rows
+    cut = {"buffer": lambda v: v[:, s0:s1], "mean": lambda v: v[s0:s1]}
+    return {k: cut.get(k, lambda v: v)(v) for k, v in state.items()}
+
+
+def dense_space_rank(rank, out, device_type, hw, raw_hw, frames):
+    """[17] one of 2 processes sharing the card: ``space_cli`` for each of
+    SPACE_DENSE_MODES on [15]'s clip. Writes dense_<rank>.json (each
+    mode's launches and rank 0's metrics) and each mode's last state
+    (dense_<mode>_<rank>.npz); rank 0 also the written frames."""
+    torch.set_num_threads(1)
+    out = pathlib.Path(out)
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    res = {}
+    for mode in SPACE_DENSE_MODES:
+        r = space_cli(rank, out, clips, mode, mode, device_type, hw)
+        np.savez(out / f"dense_{mode}_{rank}.npz", **r.pop("state"))
+        res[mode] = r
+    (out / f"dense_{rank}.json").write_text(json.dumps(res))
+
+
+def dense_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
+                      frames=FRAMES):
+    """[17] subtructAverageVector, subtructAverageVectorWithWindow,
+    shearRate and averageVector in their space form on 2 processes
+    sharing the card (``dense_space_rank``; the kernels are built in this
+    process beforehand) against this process's ``run_frames`` of the
+    same clip: the written frames and each rank's last state
+    (``dense_band_state``) bit for bit; each rank's launches equal to
+    the one process's (counted around its ``run_frames``), and
+    SPACE_DENSE_ZERO none. Beside the timings, one process's ``cli.main
+    --videos`` of each mode. Returns what main prints."""
+    out = PHASE17_TMP
+    out.mkdir(parents=True, exist_ok=True)
+    for f in out.glob("*.store"):
+        f.unlink()
+    h, w = hw
+    band = h // 2
+    _spawn_ranks(dense_space_rank,
+                 (str(out), device.type, hw, raw_hw, frames))
+    ranks = [json.loads((out / f"dense_{r}.json").read_text())
+             for r in range(2)]
+    clips = _stream_clips(1, frames + 1, raw_hw, 40)
+    (name, raw), = clips.items()
+    dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type,
+            "--no-host-prep"]
+    res, bad = {"modes": {}}, []
+    for mode in SPACE_DENSE_MODES:
+        cfg = cli._mode_config(cli.build_parser().parse_args(
+            [name, "--mode", mode, *dims]))
+        stats = runner.RunStats()
+        reset_all_launches()
+        ref = torch.stack(list(runner.run_frames(
+            mode, raw, cfg, device=device, stats=stats))).cpu().numpy()
+        one = all_launch_counts()
+        want = convert.state_to_numpy(stats.state)
+        got = np.load(out / f"space_{mode}_s0.npy")
+        m = {"frames_equal": bool(got.shape == ref.shape and
+                                  np.array_equal(got, ref)),
+             "states_equal": [], "launches": [r[mode]["launches"]
+                                              for r in ranks],
+             "one_process_launches": one}
+        for r in range(2):
+            part = dense_band_state(want, mode, (r * band, (r + 1) * band),
+                                    h)
+            dump = out / f"dense_{mode}_{r}.npz"
+            with np.load(dump) as held:
+                m["states_equal"].append(
+                    sorted(held.files) == sorted(part) and
+                    all(np.array_equal(held[k], v)
+                        for k, v in part.items()))
+            dump.unlink()   # the rings (averageVector's: 368 MB a rank)
+        if not m["frames_equal"] or not all(m["states_equal"]):
+            bad.append(f"{mode} frames/states {m['frames_equal']} "
+                       f"{m['states_equal']}")
+        if not all(np.isfinite(v).all() for v in want.values()):
+            bad.append(f"{mode}: a state value is not finite")
+        for launches in m["launches"]:
+            if launches != one or any(launches.get(k, 0) for k in
+                                      SPACE_DENSE_ZERO):
+                bad.append(f"{mode} launches {launches} against one "
+                           f"process's {one}")
+        if device.type == "cuda" and one["K1"] == 0:
+            bad.append(f"{mode}: K1 never launched")
+        m["timing"] = _space_timing(ranks[0][mode]["metrics"], frames)
+        res["modes"][mode] = m
+    if bad:
+        raise AssertionError(f"[17] dense space forms: {bad}: {res}")
+    for mode in SPACE_DENSE_MODES:
         single = cli_run([str(out / "single"), "--videos", name, "--mode",
                           mode, *dims], clips)
         res["modes"][mode]["timing"]["one_process_ms_per_frame"] = \
@@ -4448,6 +4579,43 @@ def main() -> int:
                 f"{mode} --mesh-space 2, per frame on each rank"] = [
                     r[k] / FRAMES for r in m["launches"]]
     print(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ds = dense_space_phase(dev)
+    for mode, m in ds["modes"].items():
+        tm = m["timing"]
+        per_frame = {k: v / FRAMES for k, v in m["launches"][0].items()}
+        print(f"[17] cli.main --videos --mesh-space 2 --mode {mode}, 2 "
+              f"processes sharing the card ({tm['backend']}), mesh "
+              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
+              f"640x480, the whole frame's flow on each rank: frames bit "
+              f"for bit equal to run_frames ({m['frames_equal']}), each "
+              f"rank's last state equal to one process's rows "
+              f"({m['states_equal']}); launches per rank equal to one "
+              f"process's {m['one_process_launches']} ({FRAMES} frames; "
+              f"per frame {per_frame}, the first frame's K5/K6 "
+              f"included); {', '.join(SPACE_DENSE_ZERO)} 0")
+        print(f"[17] {mode} ms a frame per rank (host clock): "
+              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+              f"exchanges per rank and frame: " + "; ".join(
+                  f"{x['exchanges_per_frame']:.3f} calls, "
+                  f"{x['exchange_ms_per_frame']:.3f} ms, "
+                  f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
+                  f"{x['output_gather_ms_per_frame']:.3f} ms)"
+                  for x in tm["ranks"]) + f"; card: {card}")
+        for r, x in enumerate(tm["ranks"]):
+            print(f"[17] {mode} rank {r} exchanges by label (ms, bytes, "
+                  f"calls a frame): " + "; ".join(
+                      f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
+                      for k, v in
+                      x["by_label_ms_bytes_calls_per_frame"].items()))
+    for i, k in enumerate(K_ROWS):
+        for mode, m in ds["modes"].items():
+            rows[i]["launches_by_space_path"][
+                f"{mode} --mesh-space 2, per frame on each rank"] = [
+                    r[k] / FRAMES for r in m["launches"]]
+    print(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -103,22 +103,30 @@ class AverageVectorOut(NamedTuple):
 
 
 def average_vector(state: AverageVectorState, flow: torch.Tensor, upper,
-                   dt: float = 2.0,
-                   grid_count: int = GRID_COUNT) -> AverageVectorOut:
+                   dt: float = 2.0, grid_count: int = GRID_COUNT,
+                   rows: "tuple[int, int] | None" = None,
+                   gather=None) -> AverageVectorOut:
     """averageVector: the ring mean of advection deltas -> an HSV field and
     each grid cell's mean angle; cells whose angle is more than 0.7*pi from
-    the global mean get counter-flow (rip) arrows."""
-    ring = ring_update(state.ring, delta_field(flow, dt, upper))
-    avg = ring.mean
+    the global mean get counter-flow (rip) arrows.
+
+    rows=(i0, i1): the state's ring holds those rows of the frame whose
+    whole flow `flow` is, and gather(the ring's mean) gives the whole
+    frame's mean (the bands of every rank). The global angle, the grid,
+    the mask and the new max come from that whole mean, so they equal
+    one process's bit for bit; hsv_u8 holds the rows' field only."""
+    ring = ring_update(state.ring, delta_field(flow, dt, upper, rows))
+    avg = ring.mean if rows is None else gather(ring.mean)
 
     theta = torch.atan2(avg[..., 1], avg[..., 0]) * (180.0 / math.pi)
     theta = torch.where(theta < 0, theta + 360.0, theta)
     mag = torch.sqrt(torch.sum(avg * avg, dim=-1))
     hue = theta / 2.0
     val = mag * 255.0 / state.max_displacement
-    hsv = torch.stack([torch.clamp(hue, 0, 255),
-                       torch.full_like(hue, 255.0),
-                       torch.clamp(val, 0, 255)], dim=-1).to(torch.uint8)
+    cut = slice(*(rows or (0, None)))
+    hsv = torch.stack([torch.clamp(hue[cut], 0, 255),
+                       torch.full_like(hue[cut], 255.0),
+                       torch.clamp(val[cut], 0, 255)], dim=-1).to(torch.uint8)
 
     new_max = torch.clamp(torch.max(mag), min=1e-6)
     gtheta = torch.sum(hue * val)

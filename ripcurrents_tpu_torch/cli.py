@@ -18,7 +18,9 @@ own videos. `--mesh-space K > 1` with the farm's flags splits each
 frame's rows over K processes (a world of S x K: S stream groups of K
 ranks, all running the same command with the same videos); it runs the
 modes with a space form (legacy, timelines, streaklines, populationMap,
-flowRedPoints: ``common.SPACE_MODES``) and exits 2 for the others.
+flowRedPoints, subtructAverageVector, subtructAverageVectorWithWindow,
+shearRate, averageVector: ``common.SPACE_MODES``) and exits 2 for the
+others.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-space", type=int, default=1, metavar="K",
                    help="with --videos: additionally shard frame rows "
                         "over K devices (one process each; the farm "
-                        "flags start them; legacy and timelines)")
+                        "flags start them; the modes with a space "
+                        "form)")
     p.add_argument("--mode", default="timelines",
                    choices=sorted(set(MODES) | set(SPECIAL_MODES)),
                    help="pipeline mode (reference default: timelines)")

@@ -114,12 +114,17 @@ def get_delta(pts: torch.Tensor, flow: torch.Tensor, dt: float,
     return torch.where(ok[..., None], pts + d * dt, pts)
 
 
-def delta_field(flow: torch.Tensor, dt: float, upper) -> torch.Tensor:
+def delta_field(flow: torch.Tensor, dt: float, upper,
+                rows: "tuple[int, int] | None" = None) -> torch.Tensor:
     """averageVector's per-pixel displacement buffer: every pixel origin
-    advected one step (ripcurrents_module.cpp:393-397) -> (H, W, 2)."""
-    h, w = flow.shape[0], flow.shape[1]
+    advected one step (ripcurrents_module.cpp:393-397) -> (H, W, 2).
+    rows=(i0, i1): the origins of those rows of the frame only (flow is
+    the whole frame's) -> (i1 - i0, W, 2), the whole field's rows bit for
+    bit."""
+    i0, i1 = rows or (0, flow.shape[0])
+    w = flow.shape[1]
     ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=flow.device),
+        torch.arange(i0, i1, dtype=torch.float32, device=flow.device),
         torch.arange(w, dtype=torch.float32, device=flow.device),
         indexing="ij")
     d, valid = sample_flow(flow, xs, ys)

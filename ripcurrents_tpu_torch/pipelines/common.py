@@ -177,7 +177,12 @@ GRAY_INPUT: set = set()
 # mesh.space > 1 splits the step's rows over the mesh's 'space' group;
 # init takes the whole first frame, step(state, raw, src=None) a frame
 # or its source rows (``prep_frame``'s `src`) and returns the band's
-# output rows.
+# output rows. legacy runs its flow on a slab of its band
+# (``parallel/spatial.py``); timelines, streaklines, populationMap and
+# flowRedPoints (the vertices split by row), subtructAverageVector,
+# subtructAverageVectorWithWindow, shearRate and averageVector (the
+# per-pixel rings split by row) gather the bands' grays and compute the
+# whole frame's flow on every rank (``pipelines/modes.py``).
 SPACE_MODES: set = set()
 
 

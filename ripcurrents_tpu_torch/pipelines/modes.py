@@ -16,6 +16,15 @@ the card 6 times a Harris frame (the frame upload, its frame count and
 RANSAC's SVDs; see its docstring), and a step that bins a histogram with
 ``torch.bincount`` (``ops/hist.py``: legacy, android) waits twice, as
 bincount reads its input's min and max from a CUDA tensor.
+
+The particle modes and the four mean-subtracted HSV modes have a space
+form (``common.SPACE_MODES``; factory(cfg, device, mesh)): each rank
+resizes its band of rows, the bands' grays are gathered into the whole
+frame on every rank (``_space_prep``) and every rank computes the whole
+frame's flow or tracks; what is kept per pixel (the rings) and what is
+drawn are the band's. Each mode's docstring says what else is
+exchanged; frames and states equal one process's bit for bit. An
+exchange on a gloo group waits on the card (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import torch
 from ripcurrents_tpu_torch import resolve_device
 from ripcurrents_tpu_torch.analysis import meanflow
 from ripcurrents_tpu_torch.analysis.motion import global_orientation_step
-from ripcurrents_tpu_torch.analysis.shear import shear_to_color
+from ripcurrents_tpu_torch.analysis import shear
 from ripcurrents_tpu_torch.config import FarnebackParams, LKParams
 from ripcurrents_tpu_torch.dynamics import advect
 from ripcurrents_tpu_torch.dynamics import particles as parts
@@ -129,6 +138,21 @@ def _space_prep(raw, cfg: ModeConfig, dev, mesh, rows, src=None,
     if rows is not None:
         gray = space_gather_rows(mesh, gray, "gray bands")
     return resized, gray
+
+
+def _band(cfg: ModeConfig, rows) -> "tuple[int, int]":
+    """(first frame row, row count) of this rank's band (`rows`,
+    ``space_rows``): the whole frame's with rows None."""
+    i0, i1 = rows or (0, cfg.ydim)
+    return i0, i1 - i0
+
+
+def shear_rows(rows: "tuple[int, int]", frame_h: int,
+               offset: int = shear.OFFSET) -> "tuple[int, int]":
+    """The frame rows a shearRate rank keeps its ring over: its band
+    `rows` and `offset` more on each side, clipped to the frame, which
+    ``shear_frobenius`` needs to give the band's rows exactly."""
+    return max(rows[0] - offset, 0), min(rows[1] + offset, frame_h)
 
 
 @register("timelines", space=True)
@@ -443,23 +467,31 @@ class SubtractAverageState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("subtructAverageVector", gray_input=True)
-def subtract_average_vector(cfg: ModeConfig, device="cuda"):
+@register("subtructAverageVector", gray_input=True, space=True)
+def subtract_average_vector(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form (mesh.space K > 1; ``common.SPACE_MODES``): the
+    bands' grays are gathered (``_space_prep``, the step's one exchange)
+    and every rank computes the whole frame's flow and subtracts its mean
+    as one process does; it colours and labels its band's rows. The new
+    running maximum is the whole flow's, which every rank holds. Frames
+    and states equal one process's bit for bit."""
     dev = resolve_device(device)
     fb = fb_preset(FarnebackParams.subtract_average(), cfg)
+    rows = space_rows(cfg, mesh)
+    row0, _ = _band(cfg, rows)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         return SubtractAverageState(flow_stream_init(gray, fb),
                                     _max_init(dev), _frame_zero(dev))
 
-    def step(state, raw):
-        _, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        _, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         flow, fs = flow_stream_step(state.fstream, gray, fb)
         colored = vector_to_color(meanflow.subtract_average(flow),
-                                  state.max_disp)
+                                  state.max_disp, rows)
         fc = state.framecount + 1
-        out = draw.draw_frame_count(colored.bgr_u8, fc)
+        out = draw.draw_frame_count(colored.bgr_u8, fc, row0=row0)
         return SubtractAverageState(fs, colored.max_displacement, fc), out
 
     return init, step
@@ -472,30 +504,41 @@ class WindowedState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("subtructAverageVectorWithWindow")
-def subtract_average_windowed(cfg: ModeConfig, device="cuda"):
+@register("subtructAverageVectorWithWindow", space=True)
+def subtract_average_windowed(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form: every rank computes the whole frame's flow from the
+    gathered grays (``_space_prep``) and keeps the window's ring over its
+    band's rows only (the ring is per pixel); the running maximum is a
+    max over the group of the bands' (the step's second exchange), and
+    the frame count and the legend are drawn on the band. Frames, the
+    ring's rows and the maximum equal one process's bit for bit."""
     dev = resolve_device(device)
     fb = fb_preset(FarnebackParams.windowed(), cfg)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
     # the colour-wheel legend at the top right (main.cpp:1097, 1161-1162)
     legend = color_wheel(cfg.ydim // 8, device=dev)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
-        ring = meanflow.ring_init(cfg.window_size, (cfg.ydim, cfg.xdim, 2),
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
+        ring = meanflow.ring_init(cfg.window_size, (band_h, cfg.xdim, 2),
                                   dev)
         return WindowedState(flow_stream_init(gray, fb), ring,
                              _max_init(dev), _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         flow, fs = flow_stream_step(state.fstream, gray, fb)
-        ring = meanflow.ring_update(state.ring, flow)
+        ring = meanflow.ring_update(state.ring, flow[row0:row0 + band_h])
         colored = vector_to_color(ring.mean, state.max_disp)
         fc = state.framecount + 1
-        overlay = draw.draw_frame_count(colored.bgr_u8, fc)
-        overlay = draw.paste(overlay, legend, 0, cfg.xdim - cfg.ydim // 8)
+        overlay = draw.draw_frame_count(colored.bgr_u8, fc, row0=row0)
+        overlay = draw.paste(overlay, legend, 0, cfg.xdim - cfg.ydim // 8,
+                             band=(row0, cfg.ydim))
         out = draw.blend(resized, overlay, 0.4, 0.6)
-        return WindowedState(fs, ring, colored.max_displacement, fc), out
+        new_max = space_all_reduce(mesh, colored.max_displacement, "max",
+                                   label="max")
+        return WindowedState(fs, ring, new_max, fc), out
 
     return init, step
 
@@ -507,31 +550,46 @@ class ShearState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("shearRate")
-def shear_rate(cfg: ModeConfig, device="cuda"):
+@register("shearRate", space=True)
+def shear_rate(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form: every rank computes the whole frame's flow from the
+    gathered grays (``_space_prep``) and keeps the ring over its band and
+    ``shear.OFFSET`` rows on each side (``shear_rows``), cut from that
+    whole flow, so the shear's differences across rows need no halo
+    exchange; the band's rows are coloured, the running maximum is a max
+    over the group of the bands' (the step's second exchange). Frames,
+    the ring's rows and the maximum equal one process's bit for bit."""
     dev = resolve_device(device)
     fb = fb_preset(FarnebackParams.windowed(), cfg)
+    rows = space_rows(cfg, mesh)
+    row0, _ = _band(cfg, rows)
+    s0, s1 = shear_rows(rows, cfg.ydim) if rows else (0, cfg.ydim)
     # the shear colour-chart legend at the top right (main.cpp:1458-1462),
     # drawn from the hue mapping itself
     legend = shear_color_chart(cfg.ydim // 12, cfg.xdim // 4, device=dev)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
-        ring = meanflow.ring_init(cfg.shear_window, (cfg.ydim, cfg.xdim, 2),
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
+        ring = meanflow.ring_init(cfg.shear_window, (s1 - s0, cfg.xdim, 2),
                                   dev)
         return ShearState(flow_stream_init(gray, fb), ring, _max_init(dev),
                           _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         flow, fs = flow_stream_step(state.fstream, gray, fb)
-        ring = meanflow.ring_update(state.ring, flow)
-        sheared = shear_to_color(ring.mean, state.max_frob)
+        ring = meanflow.ring_update(state.ring, flow[s0:s1])
+        sheared = shear.shear_to_color(ring.mean, state.max_frob,
+                                       band=(s0, cfg.ydim), rows=rows)
         fc = state.framecount + 1
-        overlay = draw.draw_frame_count(hsv_to_bgr(sheared.hsv_u8), fc)
-        overlay = draw.paste(overlay, legend, 0, cfg.xdim - cfg.xdim // 4)
+        overlay = draw.draw_frame_count(hsv_to_bgr(sheared.hsv_u8), fc,
+                                        row0=row0)
+        overlay = draw.paste(overlay, legend, 0, cfg.xdim - cfg.xdim // 4,
+                             band=(row0, cfg.ydim))
         out = draw.blend(resized, overlay, 0.5, 0.5)
-        return ShearState(fs, ring, sheared.max_frobenius, fc), out
+        new_max = space_all_reduce(mesh, sheared.max_frobenius, "max",
+                                   label="max")
+        return ShearState(fs, ring, new_max, fc), out
 
     return init, step
 
@@ -550,34 +608,51 @@ GOLD = (0, 215, 255)
 LIME = (0, 255, 0)
 
 
-@register("averageVector", gray_input=True)
-def average_vector_mode(cfg: ModeConfig, device="cuda"):
-    """The 300-frame counter-flow arrow detector as a standalone mode."""
+@register("averageVector", gray_input=True, space=True)
+def average_vector_mode(cfg: ModeConfig, device="cuda", mesh=None):
+    """The 300-frame counter-flow arrow detector as a standalone mode.
+
+    The space form: every rank computes the whole frame's flow from the
+    gathered grays (``_space_prep``) and keeps the ring of deltas over its
+    band's rows only; the bands' ring means are gathered once a frame
+    (the step's second exchange), and from that whole mean every rank
+    computes the global angle, the grid angles, the counter-flow mask
+    and the new maximum as one process does (``meanflow.
+    average_vector``). The HSV field, the circles and the arrows are
+    drawn on the band. Frames, the ring's rows and the maximum equal one
+    process's bit for bit."""
     dev = resolve_device(device)
     fb = fb_preset(FarnebackParams.subtract_average(), cfg)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
+    band = (row0, cfg.ydim)
     center = torch.tensor([[cfg.xdim / 2.0, cfg.ydim / 2.0]], device=dev)
 
+    def whole_mean(m):
+        return space_gather_rows(mesh, m, "ring mean")
+
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
         return AverageVectorModeState(
             flow_stream_init(gray, fb),
-            meanflow.average_vector_init(cfg.ydim, cfg.xdim,
+            meanflow.average_vector_init(band_h, cfg.xdim,
                                          cfg.average_buffer, dev),
             _frame_zero(dev))
 
-    def step(state, raw):
-        _, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        _, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         flow, fs = flow_stream_step(state.fstream, gray, fb)
         av = meanflow.average_vector(state.av, flow,
-                                     cfg.thresholds.upper_init)
+                                     cfg.thresholds.upper_init, rows=rows,
+                                     gather=whole_mean)
         img = hsv_to_bgr(av.hsv_u8)
         a = av.global_angle_rad
         tip = center + torch.stack([torch.cos(a) * 10.0,
                                     torch.sin(a) * 50.0])[None]
-        img = draw.draw_circles(img, center, 3, GOLD)
+        img = draw.draw_circles(img, center, 3, GOLD, row0=row0)
         img = draw.draw_arrows(img, center, tip,
                                torch.ones(1, dtype=torch.bool, device=dev),
-                               GOLD, 2, 0.2)
+                               GOLD, 2, 0.2, band=band)
         # counter-flow grid arrows (rows and columns 1..GRID_COUNT-1)
         gc = av.grid_angle_deg.shape[0]
         ch, cw = cfg.ydim // gc, cfg.xdim // gc
@@ -588,8 +663,9 @@ def average_vector_mode(cfg: ModeConfig, device="cuda"):
         tips = anchors + torch.stack([torch.cos(ang), torch.sin(ang)],
                                      -1) * 10.0
         mask = av.counter_mask[1:, 1:].reshape(-1)
-        img = draw.draw_circles(img, anchors, 1, LIME, valid=mask)
-        img = draw.draw_arrows(img, anchors, tips, mask, LIME, 1, 0.4)
+        img = draw.draw_circles(img, anchors, 1, LIME, valid=mask, row0=row0)
+        img = draw.draw_arrows(img, anchors, tips, mask, LIME, 1, 0.4,
+                               band=band)
         return AverageVectorModeState(fs, av.state, state.framecount + 1), img
 
     return init, step

@@ -29,9 +29,11 @@ stack.
 
 Rows over a 'space' group (`space` K > 1, the modes of
 ``common.SPACE_MODES``: legacy, timelines and the other particle modes
-streaklines, populationMap and flowRedPoints): a world of S x K
-processes (the farm's flags; every process runs the same command with
-the same videos) forms S 'stream' groups of K 'space' ranks
+streaklines, populationMap and flowRedPoints, and the dense modes
+subtructAverageVector, subtructAverageVectorWithWindow, shearRate and
+averageVector, which keep their rings over the band's rows): a world of
+S x K processes (the farm's flags; every process runs the same command
+with the same videos) forms S 'stream' groups of K 'space' ranks
 (``parallel/mesh.py``). Stream group g runs streams [g N/S, (g+1) N/S);
 each rank of its 'space' group decodes them, uploads only the source
 rows of its band (the pump makes the band itself where its rows resize

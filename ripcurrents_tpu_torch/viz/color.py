@@ -36,11 +36,15 @@ class VectorColorOut(NamedTuple):
     max_displacement: torch.Tensor  # () new running max (for the next frame)
 
 
-def vector_to_color(flow: torch.Tensor,
-                    max_displacement_prev) -> VectorColorOut:
-    """HSV encoding: H = angle/2, S = 255, V = mag * 255 / prev-frame max."""
+def vector_to_color(flow: torch.Tensor, max_displacement_prev,
+                    rows: "tuple[int, int] | None" = None) -> VectorColorOut:
+    """HSV encoding: H = angle/2, S = 255, V = mag * 255 / prev-frame max.
+    rows=(i0, i1): colour only those rows of flow; the new max is still
+    the whole flow's."""
+    mag_all = torch.sqrt(torch.sum(flow * flow, dim=-1))
+    cut = slice(*(rows or (0, None)))
+    flow, mag = flow[cut], mag_all[cut]
     theta = _degrees360(flow[..., 1], flow[..., 0])
-    mag = torch.sqrt(torch.sum(flow * flow, dim=-1))
     hsv = torch.stack([
         torch.clamp(theta / 2.0, 0, 255),
         torch.full_like(theta, 255.0),
@@ -49,7 +53,7 @@ def vector_to_color(flow: torch.Tensor,
             min=1e-6), 0, 255),
     ], dim=-1).to(torch.uint8)
     return VectorColorOut(hsv_to_bgr(hsv),
-                          torch.clamp(torch.max(mag), min=1e-6))
+                          torch.clamp(torch.max(mag_all), min=1e-6))
 
 
 def polar_to_hsv_bgr(ang_deg: torch.Tensor, val01: torch.Tensor,

@@ -121,28 +121,37 @@ def blend(a_u8: torch.Tensor, b_u8: torch.Tensor, alpha: float,
 
 def draw_arrows(img: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
                 valid: torch.Tensor, color, thickness: int = 1,
-                tip_frac: float = 0.4) -> torch.Tensor:
-    """cv::arrowedLine: the shaft and two tip barbs at 45 degrees."""
-    img = draw_segments(img, starts, ends, valid, color, thickness)
+                tip_frac: float = 0.4,
+                band: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """cv::arrowedLine: the shaft and two tip barbs at 45 degrees. `band`
+    as ``draw_segments``."""
+    img = draw_segments(img, starts, ends, valid, color, thickness, band)
     d = ends - starts
     tip = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)) * tip_frac
     ang = torch.atan2(d[:, 1], d[:, 0])
     for s in (math.pi / 4, -math.pi / 4):
         barb = ends - tip * torch.stack([torch.cos(ang + s),
                                          torch.sin(ang + s)], dim=-1)
-        img = draw_segments(img, ends, barb, valid, color, thickness)
+        img = draw_segments(img, ends, barb, valid, color, thickness, band)
     return img
 
 
-def paste(img: torch.Tensor, patch: torch.Tensor, y: int,
-          x: int) -> torch.Tensor:
+def paste(img: torch.Tensor, patch: torch.Tensor, y: int, x: int,
+          band: "tuple[int, int] | None" = None) -> torch.Tensor:
     """Copy `patch` into img at (y, x), the start clamped so that the patch
-    fits (the warpAffine legend placement, main.cpp:1161-1162)."""
+    fits (the warpAffine legend placement, main.cpp:1161-1162).
+    band=(row0, frame_h): img is rows [row0, row0 + its height) of a
+    frame_h-row frame; the start is clamped by the frame, and img gets
+    the patch's rows that fall in its band."""
+    row0, frame_h = band or (0, img.shape[0])
     ph, pw = patch.shape[0], patch.shape[1]
-    y = min(max(y, 0), img.shape[0] - ph)
+    y = min(max(y, 0), frame_h - ph)
     x = min(max(x, 0), img.shape[1] - pw)
+    lo, hi = max(y, row0), min(y + ph, row0 + img.shape[0])
     out = img.clone()
-    out[y:y + ph, x:x + pw] = patch.to(img.dtype)
+    if lo < hi:
+        out[lo - row0:hi - row0, x:x + pw] = patch[lo - y:hi - y].to(
+            img.dtype)
     return out
 
 
@@ -164,9 +173,11 @@ def _digit_masks() -> np.ndarray:
 
 
 def draw_frame_count(img: torch.Tensor, framecount, pos=(30, 30),
-                     scale: int = 2, color=(250, 250, 250)) -> torch.Tensor:
+                     scale: int = 2, color=(250, 250, 250),
+                     row0: int = 0) -> torch.Tensor:
     """drawFrameCount (ripcurrents_module.cpp:1198-1201): the frame number
-    as light bitmap digits near (30, 30)."""
+    as light bitmap digits near (30, 30); img may be rows [row0, ...) of
+    the frame `pos` is in."""
     dev = img.device
     masks = torch.from_numpy(np.kron(_digit_masks(),
                                      np.ones((scale, scale), np.uint8))).to(dev)
@@ -177,7 +188,7 @@ def draw_frame_count(img: torch.Tensor, framecount, pos=(30, 30),
                          torch.ones_like(fc, dtype=torch.bool)])
     x0, y0 = pos
     dh, dw = 5 * scale, 3 * scale
-    ys = (torch.arange(dh, device=dev)[:, None] + y0).expand(dh, dw)
+    ys = (torch.arange(dh, device=dev)[:, None] + y0 - row0).expand(dh, dw)
     for i in range(5):
         xs = (torch.arange(dw, device=dev)[None, :] + x0 +
               i * (dw + scale)).expand(dh, dw)

@@ -224,11 +224,13 @@ def test_mesh_space_refuses_modes_without_space_form(capsys):
     --videos too."""
     farm = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
             "--process-id", "0", "--mesh-space", "2", "--device", "cpu"]
-    assert cli.main(["--videos", "a.mp4", "--mode", "shearRate",
+    assert cli.main(["--videos", "a.mp4", "--mode", "streamlines",
                      *farm]) == 2
     assert cli.main(["a.mp4", "--mode", "legacy", *farm]) == 2
     err = capsys.readouterr().err
     assert "--mesh-space 2 runs the modes with a space form " \
-        "(flowRedPoints, legacy, populationMap, streaklines, timelines); " \
-        "--mode shearRate has none" in err
+        "(averageVector, flowRedPoints, legacy, populationMap, shearRate, " \
+        "streaklines, subtructAverageVector, " \
+        "subtructAverageVectorWithWindow, timelines); " \
+        "--mode streamlines has none" in err
     assert "--mesh-space 2 needs --videos" in err
