@@ -190,12 +190,19 @@ Every phase passes or raises (the script catches nothing):
    2 processes sharing the card, on [15]'s clip, every rank computing
    the whole frame's flow from the gathered grays, against this
    process's ``run_frames``: the written frames and each rank's last
-   state (its rings' rows, ``dense_band_state``; the flow stream, the
+   state (its rings' rows, ``space_band_state``; the flow stream, the
    maximum and the count whole) bit for bit; each rank's launches equal
    to the one process's (K5/K6 3 a frame and 3 for the first, K1/K2 3 x
    the preset's iterations, K4 2), K1b, K3, K7 and K8 0; ms a frame per
    rank and the exchanges by label beside one process's run of each
-   mode.
+   mode;
+18. the trail and exposure modes' space forms, as [17]: streamlines,
+   timelinesOnSubtractAverageVector and timelinesFarne (the whole flow
+   and all seeds on every rank, the trail canvas split by rows; K1b, K3,
+   K7 and K8 0) and averageHSV (its 300-frame ring), timex and
+   brightColor (per-pixel state split, no exchange, no kernel of
+   K1-K8); each rank's peak device bytes and state bytes beside one
+   process's peak.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels JSON, and the card's name and power limit come before
@@ -2942,7 +2949,9 @@ def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
     set to 0 just before; with `rec`, inside ``space_recording``. Rank 0
     saves the written frames (space_<tag>_s0.npy). Raises unless it
     exits 0. -> {"launches", "metrics" (rank 0; else None), "state": the
-    stream's last state as numpy arrays (``convert.state_to_numpy``)}."""
+    stream's last state as numpy arrays (``convert.state_to_numpy``),
+    "peak_bytes": the card's peak allocated bytes in the run above those
+    allocated before it (None off the card)}."""
     out = pathlib.Path(out)
     h, w = hw
     store = out / f"space_{tag}.store"
@@ -2965,9 +2974,14 @@ def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
             _patched(multirunner, "run_videos", keeping), \
             (space_recording(rec) if rec is not None
              else contextlib.nullcontext()):
+        cuda = device_type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
         reset_all_launches()
         rc = cli.main(argv)
         launches = all_launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before if cuda else None
     torch.distributed.destroy_process_group()
     if rc != 0:
         raise AssertionError(f"space rank {rank}: cli.main {mode} exited "
@@ -2979,7 +2993,7 @@ def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
     return {"launches": launches,
             "metrics": json.loads(metrics.read_text())
             if rank == 0 else None,
-            "state": convert.state_to_numpy(state)}
+            "state": convert.state_to_numpy(state), "peak_bytes": peak}
 
 
 def space_rank(rank, out, device_type, hw, raw_hw, frames):
@@ -3143,27 +3157,28 @@ def _space_timing(metrics, frames) -> dict:
         "backend": metrics["space"]["backend"], "mesh": metrics["mesh"]}
 
 
-def particles_space_rank(rank, out, device_type, hw, raw_hw, frames):
-    """[16] one of 2 processes sharing the card: ``space_cli`` for each of
-    SPACE_PARTICLE_MODES on [15]'s clip. Writes particles_<rank>.json
-    (each mode's launches and rank 0's metrics) and each mode's last
-    state (particles_<mode>_<rank>.npz); rank 0 also the written
-    frames."""
+def modes_space_rank(rank, out, device_type, hw, raw_hw, frames, group,
+                     space_modes):
+    """[16]-[18] one of 2 processes sharing the card: ``space_cli`` for
+    each of `space_modes` on [15]'s clip. Writes <group>_<rank>.json
+    (each mode's launches, peak device bytes and rank 0's metrics) and
+    each mode's last state (<group>_<mode>_<rank>.npz); rank 0 also the
+    written frames."""
     torch.set_num_threads(1)
     out = pathlib.Path(out)
     clips = _stream_clips(1, frames + 1, raw_hw, 40)
     res = {}
-    for mode in SPACE_PARTICLE_MODES:
+    for mode in space_modes:
         r = space_cli(rank, out, clips, mode, mode, device_type, hw)
-        np.savez(out / f"particles_{mode}_{rank}.npz", **r.pop("state"))
+        np.savez(out / f"{group}_{mode}_{rank}.npz", **r.pop("state"))
         res[mode] = r
-    (out / f"particles_{rank}.json").write_text(json.dumps(res))
+    (out / f"{group}_{rank}.json").write_text(json.dumps(res))
 
 
 def particles_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
                           frames=FRAMES):
     """[16] streaklines, populationMap and flowRedPoints in their space
-    form on 2 processes sharing the card (``particles_space_rank``; the
+    form on 2 processes sharing the card (``modes_space_rank``; the
     kernels are built in this process beforehand) against this
     process's ``run_frames`` of the same clip: the written frames and
     both ranks' last states (points, counts, the whole frame's gray)
@@ -3176,8 +3191,9 @@ def particles_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
     for f in out.glob("*.store"):
         f.unlink()
     h, w = hw
-    _spawn_ranks(particles_space_rank,
-                 (str(out), device.type, hw, raw_hw, frames))
+    _spawn_ranks(modes_space_rank, (str(out), device.type, hw, raw_hw,
+                                    frames, "particles",
+                                    SPACE_PARTICLE_MODES))
     ranks = [json.loads((out / f"particles_{r}.json").read_text())
              for r in range(2)]
     clips = _stream_clips(1, frames + 1, raw_hw, 40)
@@ -3229,72 +3245,67 @@ def particles_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
 
 
 # ---------------------------------------------------------------------------
-# Phase 17: the dense Farneback modes' space forms (--mesh-space 2)
+# Phases 17 and 18: the space forms that run the whole frame's flow on
+# every rank, or keep per-pixel state only (--mesh-space 2)
 # ---------------------------------------------------------------------------
 
 PHASE17_TMP = CLI_TMP / "phase17"
+PHASE18_TMP = CLI_TMP / "phase18"
 SPACE_DENSE_MODES = ("subtructAverageVector",
                      "subtructAverageVectorWithWindow", "shearRate",
                      "averageVector")
-# kernels the dense space forms never launch: the slabs' base sums, the
-# tracker and the portable and tiled warps
+SPACE_TRAIL_MODES = ("streamlines", "timelinesOnSubtractAverageVector",
+                     "timelinesFarne")
+SPACE_EXPOSURE_MODES = ("averageHSV", "timex", "brightColor")
+# kernels the dense and trail space forms never launch: the slabs' base
+# sums, the tracker and the portable and tiled warps
 SPACE_DENSE_ZERO = ("K1b", "K3", "K7", "K8")
+# ... and the exposure modes none at all
+SPACE_EXPOSURE_ZERO = K_ROWS + ("K1b",)
 
 
-def dense_band_state(state: dict, mode: str, rows, frame_h: int) -> dict:
+def space_band_state(state: dict, mode: str, rows, frame_h: int) -> dict:
     """The part of one process's last state (``convert.state_to_numpy``)
-    that the space rank holding frame rows `rows` keeps: its ring's rows
-    (the band, or for shearRate ``modes.shear_rows``), every other field
-    whole."""
+    that the space rank holding frame rows `rows` keeps: the rows of its
+    rings, trail canvas or running sum (the band, or for shearRate
+    ``modes.shear_rows``), every other field whole."""
     s0, s1 = modes.shear_rows(rows, frame_h) if mode == "shearRate" \
         else rows
-    cut = {"buffer": lambda v: v[:, s0:s1], "mean": lambda v: v[s0:s1]}
+    cut = {"buffer": lambda v: v[:, s0:s1], "mean": lambda v: v[s0:s1],
+           "overlay": lambda v: v[s0:s1], "sum_rgb": lambda v: v[s0:s1]}
     return {k: cut.get(k, lambda v: v)(v) for k, v in state.items()}
 
 
-def dense_space_rank(rank, out, device_type, hw, raw_hw, frames):
-    """[17] one of 2 processes sharing the card: ``space_cli`` for each of
-    SPACE_DENSE_MODES on [15]'s clip. Writes dense_<rank>.json (each
-    mode's launches and rank 0's metrics) and each mode's last state
-    (dense_<mode>_<rank>.npz); rank 0 also the written frames."""
-    torch.set_num_threads(1)
-    out = pathlib.Path(out)
-    clips = _stream_clips(1, frames + 1, raw_hw, 40)
-    res = {}
-    for mode in SPACE_DENSE_MODES:
-        r = space_cli(rank, out, clips, mode, mode, device_type, hw)
-        np.savez(out / f"dense_{mode}_{rank}.npz", **r.pop("state"))
-        res[mode] = r
-    (out / f"dense_{rank}.json").write_text(json.dumps(res))
-
-
-def dense_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
-                      frames=FRAMES):
-    """[17] subtructAverageVector, subtructAverageVectorWithWindow,
-    shearRate and averageVector in their space form on 2 processes
-    sharing the card (``dense_space_rank``; the kernels are built in this
-    process beforehand) against this process's ``run_frames`` of the
-    same clip: the written frames and each rank's last state
-    (``dense_band_state``) bit for bit; each rank's launches equal to
-    the one process's (counted around its ``run_frames``), and
-    SPACE_DENSE_ZERO none. Beside the timings, one process's ``cli.main
-    --videos`` of each mode. Returns what main prints."""
-    out = PHASE17_TMP
+def modes_space_phase(device, phase, out, space_modes, zero,
+                      hw=(480, 640), raw_hw=(RAW_H, RAW_W), frames=FRAMES):
+    """[17] / [18] (`phase`) the space forms of `space_modes` on 2
+    processes sharing the card (``modes_space_rank``; the kernels are
+    built in this process beforehand) against this process's
+    ``run_frames`` of the same clip: the written frames and each rank's
+    last state (``space_band_state``) bit for bit; each rank's launches
+    equal to the one process's (counted around its ``run_frames``), the
+    kernels of zero(mode) none and every other kernel some on the card.
+    Beside the timings, one process's ``cli.main --videos`` of each mode,
+    its and each rank's peak device bytes above what was allocated before
+    the run (None off the card), and each rank's state bytes. Returns
+    what main prints."""
     out.mkdir(parents=True, exist_ok=True)
     for f in out.glob("*.store"):
         f.unlink()
     h, w = hw
     band = h // 2
-    _spawn_ranks(dense_space_rank,
-                 (str(out), device.type, hw, raw_hw, frames))
-    ranks = [json.loads((out / f"dense_{r}.json").read_text())
+    group = out.name
+    _spawn_ranks(modes_space_rank, (str(out), device.type, hw, raw_hw,
+                                    frames, group, space_modes))
+    ranks = [json.loads((out / f"{group}_{r}.json").read_text())
              for r in range(2)]
     clips = _stream_clips(1, frames + 1, raw_hw, 40)
     (name, raw), = clips.items()
     dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type,
             "--no-host-prep"]
+    cuda = device.type == "cuda"
     res, bad = {"modes": {}}, []
-    for mode in SPACE_DENSE_MODES:
+    for mode in space_modes:
         cfg = cli._mode_config(cli.build_parser().parse_args(
             [name, "--mode", mode, *dims]))
         stats = runner.RunStats()
@@ -3306,19 +3317,22 @@ def dense_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
         got = np.load(out / f"space_{mode}_s0.npy")
         m = {"frames_equal": bool(got.shape == ref.shape and
                                   np.array_equal(got, ref)),
-             "states_equal": [], "launches": [r[mode]["launches"]
-                                              for r in ranks],
-             "one_process_launches": one}
+             "states_equal": [], "state_bytes": [],
+             "launches": [r[mode]["launches"] for r in ranks],
+             "one_process_launches": one,
+             "peak_bytes": [r[mode]["peak_bytes"] for r in ranks]}
         for r in range(2):
-            part = dense_band_state(want, mode, (r * band, (r + 1) * band),
+            part = space_band_state(want, mode, (r * band, (r + 1) * band),
                                     h)
-            dump = out / f"dense_{mode}_{r}.npz"
+            dump = out / f"{group}_{mode}_{r}.npz"
             with np.load(dump) as held:
                 m["states_equal"].append(
                     sorted(held.files) == sorted(part) and
                     all(np.array_equal(held[k], v)
                         for k, v in part.items()))
-            dump.unlink()   # the rings (averageVector's: 368 MB a rank)
+                m["state_bytes"].append(sum(held[k].nbytes
+                                            for k in held.files))
+            dump.unlink()   # the rings (averageHSV's: 553 MB a rank)
         if not m["frames_equal"] or not all(m["states_equal"]):
             bad.append(f"{mode} frames/states {m['frames_equal']} "
                        f"{m['states_equal']}")
@@ -3326,21 +3340,100 @@ def dense_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
             bad.append(f"{mode}: a state value is not finite")
         for launches in m["launches"]:
             if launches != one or any(launches.get(k, 0) for k in
-                                      SPACE_DENSE_ZERO):
+                                      zero(mode)):
                 bad.append(f"{mode} launches {launches} against one "
                            f"process's {one}")
-        if device.type == "cuda" and one["K1"] == 0:
-            bad.append(f"{mode}: K1 never launched")
+        unlaunched = [k for k in K_ROWS if k not in zero(mode) and
+                      one.get(k, 0) == 0]
+        if cuda and unlaunched:
+            bad.append(f"{mode}: {unlaunched} never launched")
         m["timing"] = _space_timing(ranks[0][mode]["metrics"], frames)
         res["modes"][mode] = m
     if bad:
-        raise AssertionError(f"[17] dense space forms: {bad}: {res}")
-    for mode in SPACE_DENSE_MODES:
+        raise AssertionError(f"{phase} space forms: {bad}: {res}")
+    for mode in space_modes:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+            before = torch.cuda.memory_allocated(device)
         single = cli_run([str(out / "single"), "--videos", name, "--mode",
                           mode, *dims], clips)
-        res["modes"][mode]["timing"]["one_process_ms_per_frame"] = \
+        m = res["modes"][mode]
+        m["timing"]["one_process_ms_per_frame"] = \
             single["metrics"]["seconds"] * 1e3 / frames
+        m["one_process_peak_bytes"] = \
+            torch.cuda.max_memory_allocated(device) - before if cuda \
+            else None
     return res
+
+
+def dense_space_phase(device, **kw):
+    """[17] subtructAverageVector, subtructAverageVectorWithWindow,
+    shearRate and averageVector (its 300-frame ring split) in their space
+    form, every rank computing the whole frame's flow
+    (``modes_space_phase``); SPACE_DENSE_ZERO never launched."""
+    return modes_space_phase(device, "[17] dense", PHASE17_TMP,
+                             SPACE_DENSE_MODES,
+                             lambda mode: SPACE_DENSE_ZERO, **kw)
+
+
+def trails_space_phase(device, **kw):
+    """[18] the trail modes (the whole frame's flow and all seeds on every
+    rank, the trail canvas split) and the exposure modes (averageHSV's
+    300-frame ring, timex's sum, brightColor's ring split; no exchange)
+    in their space form (``modes_space_phase``); the trail modes launch
+    no kernel of SPACE_DENSE_ZERO, the exposure modes none at all."""
+    return modes_space_phase(device, "[18] trail and exposure",
+                             PHASE18_TMP,
+                             SPACE_TRAIL_MODES + SPACE_EXPOSURE_MODES,
+                             trails_zero, **kw)
+
+
+def trails_zero(mode: str) -> tuple:
+    """The kernels [18]'s `mode` never launches."""
+    return SPACE_EXPOSURE_ZERO if mode in SPACE_EXPOSURE_MODES \
+        else SPACE_DENSE_ZERO
+
+
+def report_space_modes(tag, res, zero, card, rows) -> None:
+    """Print [17] / [18] (`tag`; ``modes_space_phase``'s `res`) and add
+    each mode's launches per frame on each rank to the kernel rows'
+    ``launches_by_space_path``."""
+    for mode, m in res["modes"].items():
+        tm = m["timing"]
+        per_frame = {k: v / FRAMES for k, v in m["launches"][0].items()}
+        print(f"{tag} cli.main --videos --mesh-space 2 --mode {mode}, 2 "
+              f"processes sharing the card ({tm['backend']}), mesh "
+              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
+              f"640x480: frames bit for bit equal to run_frames "
+              f"({m['frames_equal']}), each rank's last state equal to one "
+              f"process's rows ({m['states_equal']}); launches per rank "
+              f"equal to one process's {m['one_process_launches']} "
+              f"({FRAMES} frames; per frame {per_frame}, the first frame's "
+              f"K5/K6 included); {', '.join(zero(mode))} 0")
+        print(f"{tag} {mode} ms a frame per rank (host clock): "
+              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+              f"exchanges per rank and frame: " + "; ".join(
+                  f"{x['exchanges_per_frame']:.3f} calls, "
+                  f"{x['exchange_ms_per_frame']:.3f} ms, "
+                  f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
+                  f"{x['output_gather_ms_per_frame']:.3f} ms)"
+                  for x in tm["ranks"]) + f"; card: {card}")
+        print(f"{tag} {mode} peak device bytes per rank above the run's "
+              f"start {m['peak_bytes']}, one process "
+              f"{m['one_process_peak_bytes']}; last state bytes per rank "
+              f"{m['state_bytes']}")
+        for r, x in enumerate(tm["ranks"]):
+            print(f"{tag} {mode} rank {r} exchanges by label (ms, bytes, "
+                  f"calls a frame): " + "; ".join(
+                      f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
+                      for k, v in
+                      x["by_label_ms_bytes_calls_per_frame"].items()))
+    for i, k in enumerate(K_ROWS):
+        for mode, m in res["modes"].items():
+            rows[i]["launches_by_space_path"][
+                f"{mode} --mesh-space 2, per frame on each rank"] = [
+                    r[k] / FRAMES for r in m["launches"]]
 
 
 # ---------------------------------------------------------------------------
@@ -4582,40 +4675,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     ds = dense_space_phase(dev)
-    for mode, m in ds["modes"].items():
-        tm = m["timing"]
-        per_frame = {k: v / FRAMES for k, v in m["launches"][0].items()}
-        print(f"[17] cli.main --videos --mesh-space 2 --mode {mode}, 2 "
-              f"processes sharing the card ({tm['backend']}), mesh "
-              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
-              f"640x480, the whole frame's flow on each rank: frames bit "
-              f"for bit equal to run_frames ({m['frames_equal']}), each "
-              f"rank's last state equal to one process's rows "
-              f"({m['states_equal']}); launches per rank equal to one "
-              f"process's {m['one_process_launches']} ({FRAMES} frames; "
-              f"per frame {per_frame}, the first frame's K5/K6 "
-              f"included); {', '.join(SPACE_DENSE_ZERO)} 0")
-        print(f"[17] {mode} ms a frame per rank (host clock): "
-              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
-              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
-              f"exchanges per rank and frame: " + "; ".join(
-                  f"{x['exchanges_per_frame']:.3f} calls, "
-                  f"{x['exchange_ms_per_frame']:.3f} ms, "
-                  f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
-                  f"{x['output_gather_ms_per_frame']:.3f} ms)"
-                  for x in tm["ranks"]) + f"; card: {card}")
-        for r, x in enumerate(tm["ranks"]):
-            print(f"[17] {mode} rank {r} exchanges by label (ms, bytes, "
-                  f"calls a frame): " + "; ".join(
-                      f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
-                      for k, v in
-                      x["by_label_ms_bytes_calls_per_frame"].items()))
-    for i, k in enumerate(K_ROWS):
-        for mode, m in ds["modes"].items():
-            rows[i]["launches_by_space_path"][
-                f"{mode} --mesh-space 2, per frame on each rank"] = [
-                    r[k] / FRAMES for r in m["launches"]]
+    report_space_modes("[17]", ds, lambda mode: SPACE_DENSE_ZERO, card,
+                       rows)
     print(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ts = trails_space_phase(dev)
+    report_space_modes("[18]", ts, trails_zero, card, rows)
+    print(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,9 @@ frame's rows over K processes (a world of S x K: S stream groups of K
 ranks, all running the same command with the same videos); it runs the
 modes with a space form (legacy, timelines, streaklines, populationMap,
 flowRedPoints, subtructAverageVector, subtructAverageVectorWithWindow,
-shearRate, averageVector: ``common.SPACE_MODES``) and exits 2 for the
-others.
+shearRate, averageVector, streamlines, timelinesOnSubtractAverageVector,
+timelinesFarne, averageHSV, timex, brightColor: ``common.SPACE_MODES``)
+and exits 2 for the others.
 """
 
 from __future__ import annotations

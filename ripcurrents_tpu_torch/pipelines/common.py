@@ -181,8 +181,12 @@ GRAY_INPUT: set = set()
 # (``parallel/spatial.py``); timelines, streaklines, populationMap and
 # flowRedPoints (the vertices split by row), subtructAverageVector,
 # subtructAverageVectorWithWindow, shearRate and averageVector (the
-# per-pixel rings split by row) gather the bands' grays and compute the
-# whole frame's flow on every rank (``pipelines/modes.py``).
+# per-pixel rings split by row), streamlines,
+# timelinesOnSubtractAverageVector and timelinesFarne (the trail canvas
+# split by row) gather the bands' grays and compute the whole frame's
+# flow or tracks on every rank; averageHSV, timex and brightColor keep
+# their band's per-pixel state and exchange nothing
+# (``pipelines/modes.py``).
 SPACE_MODES: set = set()
 
 

@@ -17,14 +17,17 @@ RANSAC's SVDs; see its docstring), and a step that bins a histogram with
 ``torch.bincount`` (``ops/hist.py``: legacy, android) waits twice, as
 bincount reads its input's min and max from a CUDA tensor.
 
-The particle modes and the four mean-subtracted HSV modes have a space
-form (``common.SPACE_MODES``; factory(cfg, device, mesh)): each rank
-resizes its band of rows, the bands' grays are gathered into the whole
-frame on every rank (``_space_prep``) and every rank computes the whole
-frame's flow or tracks; what is kept per pixel (the rings) and what is
-drawn are the band's. Each mode's docstring says what else is
-exchanged; frames and states equal one process's bit for bit. An
-exchange on a gloo group waits on the card (``parallel/mesh.py``).
+The particle modes, the four mean-subtracted HSV modes and the three
+trail modes have a space form (``common.SPACE_MODES``; factory(cfg,
+device, mesh)): each rank resizes its band of rows, the bands' grays
+are gathered into the whole frame on every rank (``_space_prep``) and
+every rank computes the whole frame's flow or tracks; what is kept per
+pixel (the rings, the trail canvas) and what is drawn are the band's.
+The exposure modes averageHSV, timex and brightColor keep per-pixel
+state only: each rank resizes and keeps its band and exchanges nothing.
+Each mode's docstring says what else is exchanged; frames and states
+equal one process's bit for bit. An exchange on a gloo group waits on
+the card (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -370,91 +373,101 @@ class TrailsState(NamedTuple):
     timelinesFarne."""
     fstream: FlowStream
     seeds: torch.Tensor      # (n, 2)
-    overlay: torch.Tensor    # (H, W) uint8 trail canvas
+    overlay: torch.Tensor    # (H or band, W) uint8 trail canvas
     framecount: torch.Tensor
 
 
-def _trails_init(gray, seeds, fb, cfg, dev) -> TrailsState:
-    return TrailsState(flow_stream_init(gray, fb), seeds,
-                       torch.zeros((cfg.ydim, cfg.xdim), dtype=torch.uint8,
-                                   device=dev), _frame_zero(dev))
+def _trail_mode(cfg: ModeConfig, device, mesh, preset: FarnebackParams,
+                seeds, subtract: bool = False, vertex_line: bool = False):
+    """(init, step) of a trail mode: the flow of `preset` (less its mean
+    with `subtract`), the seeds (``seeds(dev)``, (n, 2)) advected through
+    it and their trails drawn on the carried canvas; the output frame is
+    the frame with the canvas composited (``_composite_trails``), or with
+    `vertex_line` the frame with the seeds drawn (``draw_vertex_line``).
 
-
-@register("streamlines")
-def streamlines_mode(cfg: ModeConfig, device="cuda"):
+    The space form (mesh.space K > 1; ``common.SPACE_MODES``): the bands'
+    grays are gathered (``_space_prep``, the step's one exchange) and
+    every rank computes the whole frame's flow, since the 100-step
+    advection samples it wherever a seed goes. Every rank advects all
+    seeds, the same on every rank (the flow is one process's bit for bit
+    and the seeds come from the config), and keeps and draws the trail
+    canvas over its band's rows only. Frames and states equal one
+    process's bit for bit."""
     dev = resolve_device(device)
-    fb = fb_preset(FarnebackParams.streamlines(), cfg)
+    fb = fb_preset(preset, cfg)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
+    band = (row0, cfg.ydim)
 
     def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
-        seeds = torch.tensor([[300.0, 300.0]], device=dev)  # main.cpp:240
-        return _trails_init(gray, seeds, fb, cfg, dev)
+        _, gray = _space_prep(first_raw, cfg, dev, mesh, rows, first=True)
+        return TrailsState(flow_stream_init(gray, fb), seeds(dev),
+                           torch.zeros((band_h, cfg.xdim), dtype=torch.uint8,
+                                       device=dev), _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         flow, fs = flow_stream_step(state.fstream, gray, fb)
+        if subtract:
+            flow = meanflow.subtract_average(flow)
         fc = state.framecount + 1
-        seeds, overlay = _advect_and_draw_trails(
+        moved, overlay = _advect_and_draw_trails(
             state.seeds, state.overlay, flow, fc, cfg,
-            upper=cfg.thresholds.upper_init)
-        out = _composite_trails(resized, overlay)
-        return TrailsState(fs, seeds, overlay, fc), out
+            upper=cfg.thresholds.upper_init, band=band)
+        out = draw_vertex_line(resized, moved, fc, band) if vertex_line \
+            else _composite_trails(resized, overlay)
+        return TrailsState(fs, moved, overlay, fc), out
 
     return init, step
 
 
-@register("timelinesOnSubtractAverageVector")
-def timelines_on_subtract(cfg: ModeConfig, device="cuda"):
-    dev = resolve_device(device)
-    fb = fb_preset(FarnebackParams.streamlines(), cfg)  # main.cpp:742
+def draw_vertex_line(frame_u8, seeds, fc, band=None):
+    """timelinesFarne's output: the vertices as circles joined by a
+    polyline, and the frame count. With band=(row0, frame_h), frame_u8
+    is rows [row0, row0 + its height) of a frame_h-row frame and gets
+    those rows of the whole frame's drawing."""
+    row0 = band[0] if band else 0
+    out = draw.draw_circles(frame_u8, seeds[:1], 4, BLUE, row0=row0)
+    out = draw.draw_polyline(out, seeds, RED, 2, band=band)
+    out = draw.draw_circles(out, seeds[1:], 4, BLUE, row0=row0)
+    return draw.draw_frame_count(out, fc, row0=row0)
 
-    def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+
+@register("streamlines", space=True)
+def streamlines_mode(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form as ``_trail_mode``'s."""
+    return _trail_mode(
+        cfg, device, mesh, FarnebackParams.streamlines(),
+        lambda dev: torch.tensor([[300.0, 300.0]], device=dev))  # main.cpp:240
+
+
+@register("timelinesOnSubtractAverageVector", space=True)
+def timelines_on_subtract(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form as ``_trail_mode``'s: the mean subtracted is the
+    whole flow's, which every rank holds."""
+    def seeds(dev):
         gen = torch.Generator().manual_seed(cfg.seed)
-        seeds = torch.floor(
+        return torch.floor(
             torch.rand((cfg.n_streamline_seeds, 2), generator=gen) *
             torch.tensor([cfg.xdim, cfg.ydim], dtype=torch.float32)).to(dev)
-        return _trails_init(gray, seeds, fb, cfg, dev)
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
-        flow, fs = flow_stream_step(state.fstream, gray, fb)
-        flow = meanflow.subtract_average(flow)
-        fc = state.framecount + 1
-        seeds, overlay = _advect_and_draw_trails(
-            state.seeds, state.overlay, flow, fc, cfg,
-            upper=cfg.thresholds.upper_init)
-        out = _composite_trails(resized, overlay)
-        return TrailsState(fs, seeds, overlay, fc), out
-
-    return init, step
+    return _trail_mode(cfg, device, mesh,
+                       FarnebackParams.streamlines(),  # main.cpp:742
+                       seeds, subtract=True)
 
 
-@register("timelinesFarne")
-def timelines_farne(cfg: ModeConfig, device="cuda"):
-    dev = resolve_device(device)
-    fb = fb_preset(FarnebackParams.subtract_average(), cfg)  # main.cpp:961
-
-    def init(first_raw):
-        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
+@register("timelinesFarne", space=True)
+def timelines_farne(cfg: ModeConfig, device="cuda", mesh=None):
+    """The space form as ``_trail_mode``'s; each rank draws the vertex
+    line and the frame count on its band (``draw_vertex_line``)."""
+    def seeds(dev):
         # the vertex line (100,100)-(500,100), 20 vertices (main.cpp:873-889)
-        tl = parts.timeline_init((100.0, 100.0), (500.0, 100.0), 20, dev)
-        return _trails_init(gray, tl.vertices[:20], fb, cfg, dev)
+        return parts.timeline_init((100.0, 100.0), (500.0, 100.0), 20,
+                                   dev).vertices[:20]
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
-        flow, fs = flow_stream_step(state.fstream, gray, fb)
-        fc = state.framecount + 1
-        seeds, overlay = _advect_and_draw_trails(
-            state.seeds, state.overlay, flow, fc, cfg,
-            upper=cfg.thresholds.upper_init)
-        out = draw.draw_circles(resized, seeds[:1], 4, BLUE)
-        out = draw.draw_polyline(out, seeds, RED, 2)
-        out = draw.draw_circles(out, seeds[1:], 4, BLUE)
-        out = draw.draw_frame_count(out, fc)
-        return TrailsState(fs, seeds, overlay, fc), out
-
-    return init, step
+    return _trail_mode(cfg, device, mesh,
+                       FarnebackParams.subtract_average(),  # main.cpp:961
+                       seeds, vertex_line=True)
 
 
 # ---------------------------------------------------------------------------
@@ -679,23 +692,27 @@ def _u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
-@register("averageHSV")
-def average_hsv(cfg: ModeConfig, device="cuda"):
+@register("averageHSV", space=True)
+def average_hsv(cfg: ModeConfig, device="cuda", mesh=None):
     """averageHSV (ripcurrents_module.cpp:365-376, driven from the dead
     main_old.cpp:360): the ring mean of the last BUFFER_FRAME frames. The
     reference's quirk is kept: despite the name it never converts to HSV
     (its cvtColor is commented out at ripcurrents_module.cpp:367) and
     averages the BGR frame. The state is the ring itself
     (``meanflow.RingMean``; 1.1 GB of float32 at 640x480 and 300
-    frames, copied by each out-of-place step)."""
+    frames, copied by each out-of-place step). The space form keeps the
+    ring over the band's rows (1/K of it a rank)."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
+    band_h = _band(cfg, rows)[1]
 
     def init(first_raw):
         return meanflow.ring_init(cfg.average_buffer,
-                                  (cfg.ydim, cfg.xdim, 3), dev)
+                                  (band_h, cfg.xdim, 3), dev)
 
-    def step(state, raw):
-        resized, _ = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, _ = prep_frame(to_device(raw, dev), cfg, rows=rows,
+                                src=src)
         state = meanflow.average_hsv_update(state, resized)
         return state, _u8(state.mean)
 
@@ -703,60 +720,68 @@ def average_hsv(cfg: ModeConfig, device="cuda"):
 
 
 class TimexState(NamedTuple):
-    sum_rgb: torch.Tensor     # (H, W, 3) float32 running sum
+    sum_rgb: torch.Tensor     # (H or band, W, 3) float32 running sum
     framecount: torch.Tensor
 
 
-@register("timex")
-def timex(cfg: ModeConfig, device="cuda"):
+@register("timex", space=True)
+def timex(cfg: ModeConfig, device="cuda", mesh=None):
     """compute_timex (main.cpp:1195-1263): the running mean of the raw
-    frames."""
+    frames. The space form keeps the sum over the band's rows."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
 
     def init(first_raw):
-        return TimexState(torch.zeros((cfg.ydim, cfg.xdim, 3),
+        return TimexState(torch.zeros((band_h, cfg.xdim, 3),
                                       dtype=torch.float32, device=dev),
                           _frame_zero(dev))
 
-    def step(state, raw):
-        resized, _ = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, _ = prep_frame(to_device(raw, dev), cfg, rows=rows,
+                                src=src)
         s = meanflow.timex_update(state.sum_rgb, resized)
         fc = state.framecount + 1
-        out = draw.draw_frame_count(_u8(s / fc.to(torch.float32)), fc)
+        out = draw.draw_frame_count(_u8(s / fc.to(torch.float32)), fc,
+                                    row0=row0)
         return TimexState(s, fc), out
 
     return init, step
 
 
 class BrightColorState(NamedTuple):
-    buffer: torch.Tensor      # (window, H, W, 3) uint8 HSV
+    buffer: torch.Tensor      # (window, H or band, W, 3) uint8 HSV
     idx: torch.Tensor         # () int32 next slot
     framecount: torch.Tensor
 
 
-@register("brightColor")
-def bright_color(cfg: ModeConfig, device="cuda"):
+@register("brightColor", space=True)
+def bright_color(cfg: ModeConfig, device="cuda", mesh=None):
     """compute_brightColor (main.cpp:1265-1382) over a ring of the last
     ``bright_window`` frames. The reference's quirks are kept: it converts
     BGR data with RGB2HSV (main.cpp:1303) and HSV2RGB's output is written
     to a BGR frame. The new frame goes into a new buffer; the state's is
-    not written."""
+    not written. The space form keeps the ring over the band's rows (the
+    reduction is per pixel)."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
 
     def init(first_raw):
         return BrightColorState(
-            torch.zeros((cfg.bright_window, cfg.ydim, cfg.xdim, 3),
+            torch.zeros((cfg.bright_window, band_h, cfg.xdim, 3),
                         dtype=torch.uint8, device=dev),
             _frame_zero(dev), _frame_zero(dev))
 
-    def step(state, raw):
-        resized, _ = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, _ = prep_frame(to_device(raw, dev), cfg, rows=rows,
+                                src=src)
         buf = state.buffer.index_copy(0, state.idx.reshape(1).long(),
                                       rgb_to_hsv(resized)[None])
         reduced = meanflow.bright_color_reduce(buf, cfg.bright_option)
         fc = state.framecount + 1
         out = draw.draw_frame_count(
-            torch.flip(hsv_to_bgr(reduced), dims=(-1,)), fc)
+            torch.flip(hsv_to_bgr(reduced), dims=(-1,)), fc, row0=row0)
         return BrightColorState(buf, (state.idx + 1) % cfg.bright_window,
                                 fc), out
 

@@ -29,9 +29,12 @@ stack.
 
 Rows over a 'space' group (`space` K > 1, the modes of
 ``common.SPACE_MODES``: legacy, timelines and the other particle modes
-streaklines, populationMap and flowRedPoints, and the dense modes
+streaklines, populationMap and flowRedPoints, the dense modes
 subtructAverageVector, subtructAverageVectorWithWindow, shearRate and
-averageVector, which keep their rings over the band's rows): a world of
+averageVector, which keep their rings over the band's rows, the trail
+modes streamlines, timelinesOnSubtractAverageVector and timelinesFarne,
+which keep their trail canvas so, and the exposure modes averageHSV,
+timex and brightColor): a world of
 S x K processes (the farm's flags; every process runs the same command
 with the same videos) forms S 'stream' groups of K 'space' ranks
 (``parallel/mesh.py``). Stream group g runs streams [g N/S, (g+1) N/S);

@@ -25,6 +25,9 @@ SEEDS = {
         gens=p, verts=p[:, None, :].repeat(1, s.verts.shape[1], 1)),
     "populationMap": lambda s, p: s._replace(
         pop=s.pop._replace(vertices=p)),
+    **{m: lambda s, p: s._replace(seeds=p) for m in (
+        "streamlines", "timelinesOnSubtractAverageVector",
+        "timelinesFarne")},
 }
 
 

@@ -115,8 +115,17 @@ def test_two_streams_match_jax(tmp_path, monkeypatch, mode):
     kw = dict(xdim=160, ydim=120)
     stats = multirunner.run_videos(mode, clips, "multi", ModeConfig(**kw),
                                    chunk=4, progress=False, device="cpu")
-    jstats = jmulti.run_videos(mode, clips, "multi", JaxModeConfig(**kw),
-                               chunk=4, progress=False)
+    # JAX keeps its compiled program by (mode, config, streams): one that
+    # an earlier test of this process compiled (tests/test_multirunner.py
+    # runs these modes at 160x120) would not step on the patched flow,
+    # nor may this test's reach a later one
+    jmulti._multi_program.cache_clear()
+    try:
+        jstats = jmulti.run_videos(mode, clips, "multi",
+                                   JaxModeConfig(**kw), chunk=4,
+                                   progress=False)
+    finally:
+        jmulti._multi_program.cache_clear()
     assert stats.frames == jstats.frames == 16
     assert sorted(got) == sorted(want) == ["multi_s0.mp4", "multi_s1.mp4"]
     for path in got:

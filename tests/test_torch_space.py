@@ -224,13 +224,17 @@ def test_mesh_space_refuses_modes_without_space_form(capsys):
     --videos too."""
     farm = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
             "--process-id", "0", "--mesh-space", "2", "--device", "cpu"]
-    assert cli.main(["--videos", "a.mp4", "--mode", "streamlines",
+    assert cli.main(["--videos", "a.mp4", "--mode", "android",
                      *farm]) == 2
     assert cli.main(["a.mp4", "--mode", "legacy", *farm]) == 2
     err = capsys.readouterr().err
     assert "--mesh-space 2 runs the modes with a space form " \
-        "(averageVector, flowRedPoints, legacy, populationMap, shearRate, " \
-        "streaklines, subtructAverageVector, " \
-        "subtructAverageVectorWithWindow, timelines); " \
-        "--mode streamlines has none" in err
+        "(averageHSV, averageVector, brightColor, flowRedPoints, legacy, " \
+        "populationMap, shearRate, streaklines, streamlines, " \
+        "subtructAverageVector, subtructAverageVectorWithWindow, timelines, " \
+        "timelinesFarne, timelinesOnSubtractAverageVector, timex); " \
+        "--mode android has none" in err
     assert "--mesh-space 2 needs --videos" in err
+    for mode in ("phaseCorrelate", "globalOrientation", "stabilizeTPU"):
+        assert cli.main(["--videos", "a.mp4", "--mode", mode, *farm]) == 2
+        assert f"--mode {mode} has none" in capsys.readouterr().err

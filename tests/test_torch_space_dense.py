@@ -93,12 +93,20 @@ def _jax_runs(monkeypatch, clips) -> dict:
         jnp.stack([g / 64.0 - 2.0, 1.0 - g / 128.0], -1), fs))
     monkeypatch.setattr(jmodes, "flow_stream_init",
                         lambda g, fb: jcommon.FlowStream(()))
-    for mode in dense.DENSE:
-        with (jax.disable_jit() if mode == "shearRate"
-              else contextlib.nullcontext()):
-            jmulti.run_videos(mode, clips, f"jx_{mode}",
-                              JaxModeConfig(**dense.KW), chunk=dense.CHUNK,
-                              space=2, progress=False)
+    # JAX keeps its compiled programs by (mode, config, streams): none
+    # compiled before the patch may serve these runs, nor these a later
+    # test
+    jmulti._multi_program.cache_clear()
+    try:
+        for mode in dense.DENSE:
+            with (jax.disable_jit() if mode == "shearRate"
+                  else contextlib.nullcontext()):
+                jmulti.run_videos(mode, clips, f"jx_{mode}",
+                                  JaxModeConfig(**dense.KW),
+                                  chunk=dense.CHUNK, space=2,
+                                  progress=False)
+    finally:
+        jmulti._multi_program.cache_clear()
     return {mode: {f"s{i}": np.stack(want[f"jx_{mode}_s{i}.mp4"])
                    for i in (0, 1)} for mode in dense.DENSE}
 
