@@ -116,6 +116,10 @@ Every phase passes or raises (the script catches nothing):
    interior (below ``STAB_RESIDUAL`` x raw); then each engine at 192x256
    on the card against the CPU with the CPU's RANSAC noise injected,
    step by step from the CPU's states and chained (``STAB_*`` limits);
+   ``ransac_homography`` on the card against the CPU with collinear
+   4-point samples among its trials (``compare_ransac_degenerate``: the
+   refined H within ``STAB_H_PX`` and the inlier counts equal while a
+   trial in general position wins; every trial collinear is read);
 12. the CLI's ``benchmark`` work on one 640x480 pair: ``farneback``
    (``BENCH_FB``) and ``dense_lk`` (``LKParams.dense_grid()``), each a
    warm and a timed call ended by a device sync, dense_lk's K8 launches
@@ -202,11 +206,27 @@ Every phase passes or raises (the script catches nothing):
    K7 and K8 0) and averageHSV (its 300-frame ring), timex and
    brightColor (per-pixel state split, no exchange, no kernel of
    K1-K8); each rank's peak device bytes and state bytes beside one
-   process's peak.
+   process's peak;
+19. the last four modes' space forms, as [17]: android over 100 frames
+   (the whole frame fed to and resized on every rank, no exchange, the
+   whole flow, the accumulator over ``modes.android_rows``; K1/K2 12,
+   K4 3, K5/K6 4 a frame and 4 for the first) and the red overlay
+   pixels each rank draws after the warmup, phaseCorrelate (the whole
+   frame on every rank, no exchange, the band and the ROI translated)
+   and globalOrientation over 40, and
+   stabilizeTPU (the colour bands gathered, the whole step on every
+   rank; K8 once a frame) over 40 with Harris and 8 with AKAZE; no
+   kernel that a mode does not launch.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels JSON, and the card's name and power limit come before
-that. Without a card the script exits non-zero before printing a result.
+The standard output holds the card's name and power limit, one summary
+line a phase (and a space run), the kernels JSON (compact, floats to 5
+significant digits, ``short_row``: without the per-level ``levels_us``,
+the space paths' launches by run) and, last,
+``{"ok": true, "device": {...}}``; every detail line, the full kernels
+JSON among them, goes to ``build/chip_smoke_details.txt``
+(``DETAILS``). The card's name and power limit also come just before the
+kernels line.
+Without a card the script exits non-zero before printing a result.
 
 ``python3 chip_smoke.py --compare-parent DIR``, where DIR holds only an
 older tree's ``ripcurrents_tpu_torch/`` (``git archive <commit>
@@ -284,6 +304,59 @@ def all_launch_counts() -> dict:
     """{"K1": n, ..., "K8": n, "K1b": n} since ``reset_all_launches``."""
     return {**launch_counts(), "K1b": fu.farneback_block_sums.launches}
 from ripcurrents_tpu_torch.utils.checkpoint import load_meta
+
+# main() writes every detail line to DETAILS and keeps its standard
+# output to the card, one summary line a phase (and a space run), the
+# kernels line and the result, so that the last 24,000 bytes of the
+# output still hold the whole summary.
+DETAILS = pathlib.Path(__file__).resolve().parent / "build" / \
+    "chip_smoke_details.txt"
+_DETAILS = []   # the details file while main() runs
+
+
+def say(*args) -> None:
+    """A detail line: to DETAILS while main() runs, else to stdout."""
+    print(*args, file=_DETAILS[0] if _DETAILS else sys.stdout, flush=True)
+
+
+def summary(line: str) -> None:
+    """A line of main()'s standard output, written to DETAILS too."""
+    if _DETAILS:
+        print(line, file=_DETAILS[0], flush=True)
+    print(line, flush=True)
+
+
+def compact_json(obj) -> str:
+    """obj as one JSON line without spaces, floats to 5 significant
+    digits."""
+    def short(x):
+        if isinstance(x, float):
+            return float(f"{x:.5g}")
+        if isinstance(x, dict):
+            return {k: short(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [short(v) for v in x]
+        return x
+    return json.dumps(short(obj), separators=(",", ":"))
+
+
+SPACE_KEY = ("per frame on each rank at --mesh-space 2 (one value where "
+             "the ranks agree)")
+
+
+def short_row(row: dict) -> dict:
+    """A kernel row as main()'s standard output gives it: without the
+    per-level times, and ``launches_by_space_path`` as {SPACE_KEY: {run:
+    launches}}; the details hold the full row."""
+    out = {k: v for k, v in row.items() if k != "levels_us"}
+    space = row.get("launches_by_space_path")
+    if space:
+        out["launches_by_space_path"] = {SPACE_KEY: {
+            k.split(" --mesh-space")[0]:
+                v[0] if isinstance(v, list) and len(set(v)) == 1 else v
+            for k, v in space.items()}}
+    return out
+
 
 # H100 SXM published peaks: HBM bytes/s and
 # float32 (non-tensor-core) flop/s.
@@ -1112,8 +1185,8 @@ def device_events(fn, cpu=False, tries=5, chrome_trace=None,
         if i + 1 < tries:
             what = "no device event" if not events else \
                 "device events that disagree with the launch counters"
-            print(f"    torch.profiler recorded {what} in a session; "
-                  f"profiling it again ({i + 2} of {tries})", flush=True)
+            say(f"    torch.profiler recorded {what} in a session; "
+                f"profiling it again ({i + 2} of {tries})")
     if chrome_trace is not None:
         prof.export_chrome_trace(str(chrome_trace))
     return events
@@ -2084,6 +2157,51 @@ def compare_stabilize_small(device, features, n=3):
     return res
 
 
+# RANSAC's trials with collinear samples, as the CPU test against JAX
+# builds them (``tests/test_torch_feature_stab.py``): 20 correspondences
+# on one line; three of five trials draw 4 of them, the other two points
+# in general position; then every trial collinear
+DEGENERATE_SEL = {"mixed": [[0, 5, 10, 15], [1, 6, 11, 19],
+                            [30, 60, 90, 120], [2, 3, 4, 7],
+                            [40, 80, 150, 199]],
+                  "all_collinear": [[0, 5, 10, 15], [1, 6, 11, 19],
+                                    [2, 3, 4, 7]]}
+
+
+def compare_ransac_degenerate(device) -> dict:
+    """[11] ``ransac_homography`` on `device` against the CPU with the
+    DEGENERATE_SEL samples of 200 exact correspondences under a
+    perspective H at 120x160. A collinear sample's DLT has a null space
+    of two dimensions, so cuSOLVER's and LAPACK's SVDs may return
+    different H for it; with a trial in general position ("mixed") the
+    refined H must stay within STAB_H_PX and the inlier counts equal
+    (raises otherwise); "all_collinear" is read, not bounded. -> {case:
+    {"h_px", "inliers": (card, CPU)}}."""
+    rng = np.random.default_rng(1)
+    true = np.float32([[1.01, 0.02, 3.0], [-0.015, 0.99, -2.0],
+                       [1e-5, -2e-5, 1.0]])
+    src = rng.uniform(0, [160, 120], (200, 2)).astype(np.float32)
+    src[:20, 0] = np.linspace(5, 150, 20, dtype=np.float32)
+    src[:20, 1] = 0.5 * src[:20, 0] + 10
+    q = np.c_[src, np.ones(200, np.float32)] @ true.T
+    dst = (q[:, :2] / q[:, 2:]).astype(np.float32)
+    res = {}
+    for case, sel in DEGENERATE_SEL.items():
+        got = [feature_stab.ransac_homography(
+            *(torch.from_numpy(a).to(d) for a in (src, dst)),
+            torch.ones(200, dtype=torch.bool, device=d),
+            sel=torch.tensor(sel, device=d)) for d in (device,
+                                                       torch.device("cpu"))]
+        res[case] = {"h_px": _corner_px(got[0][0].cpu().numpy(),
+                                        got[1][0].numpy(), 120, 160),
+                     "inliers": tuple(int(n) for _, n in got)}
+    mixed = res["mixed"]
+    if mixed["h_px"] > STAB_H_PX or len(set(mixed["inliers"])) != 1:
+        raise AssertionError(f"RANSAC with collinear samples on {device} "
+                             f"vs CPU: {res}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Phase 12: the benchmark mode's work (dense LK against Farneback)
 # ---------------------------------------------------------------------------
@@ -2942,11 +3060,13 @@ def space_recording(rec: dict, slab_fn="spatial_stream_step"):
         yield rec
 
 
-def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
-    """``cli.main --videos <clips> --mode <mode> --mesh-space 2`` as rank
-    `rank` with the farm's flags (a file:// store `space_<tag>.store` in
-    `out`, so the 'space' group is gloo), --no-host-prep, every counter
-    set to 0 just before; with `rec`, inside ``space_recording``. Rank 0
+def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None,
+              extra=()):
+    """``cli.main --videos <clips> --mode <mode> --mesh-space 2`` and the
+    `extra` flags as rank `rank` with the farm's flags (a file:// store
+    `space_<tag>.store` in `out`, so the 'space' group is gloo),
+    --no-host-prep, every counter set to 0 just before; with `rec`,
+    inside ``space_recording``. Rank 0
     saves the written frames (space_<tag>_s0.npy). Raises unless it
     exits 0. -> {"launches", "metrics" (rank 0; else None), "state": the
     stream's last state as numpy arrays (``convert.state_to_numpy``),
@@ -2960,7 +3080,7 @@ def space_cli(rank, out, clips, mode, tag, device_type, hw, rec=None):
             "--mesh-space", "2", "--coordinator", f"file://{store}",
             "--num-processes", "2", "--process-id", str(rank),
             "--no-host-prep", "--xdim", str(w), "--ydim", str(h), "--device",
-            device_type, "--metrics-json", str(metrics)]
+            device_type, "--metrics-json", str(metrics), *extra]
     kept = []
     real = multirunner.run_videos
 
@@ -3157,21 +3277,28 @@ def _space_timing(metrics, frames) -> dict:
         "backend": metrics["space"]["backend"], "mesh": metrics["mesh"]}
 
 
+def _space_run(spec, frames):
+    """A space run as (tag, mode, extra CLI flags, frames): a mode's name
+    alone is the mode with the CLI's defaults over `frames` frames."""
+    return (spec, spec, (), frames) if isinstance(spec, str) else spec
+
+
 def modes_space_rank(rank, out, device_type, hw, raw_hw, frames, group,
                      space_modes):
-    """[16]-[18] one of 2 processes sharing the card: ``space_cli`` for
-    each of `space_modes` on [15]'s clip. Writes <group>_<rank>.json
-    (each mode's launches, peak device bytes and rank 0's metrics) and
-    each mode's last state (<group>_<mode>_<rank>.npz); rank 0 also the
-    written frames."""
+    """[16]-[19] one of 2 processes sharing the card: ``space_cli`` for
+    each run of `space_modes` (``_space_run``) on [15]'s clip of its
+    length. Writes <group>_<rank>.json (each run's launches, peak device
+    bytes and rank 0's metrics, by tag) and each run's last state
+    (<group>_<tag>_<rank>.npz); rank 0 also the written frames."""
     torch.set_num_threads(1)
     out = pathlib.Path(out)
-    clips = _stream_clips(1, frames + 1, raw_hw, 40)
     res = {}
-    for mode in space_modes:
-        r = space_cli(rank, out, clips, mode, mode, device_type, hw)
-        np.savez(out / f"{group}_{mode}_{rank}.npz", **r.pop("state"))
-        res[mode] = r
+    for tag, mode, extra, n in (_space_run(s, frames) for s in space_modes):
+        clips = _stream_clips(1, n + 1, raw_hw, 40)
+        r = space_cli(rank, out, clips, mode, tag, device_type, hw,
+                      extra=extra)
+        np.savez(out / f"{group}_{tag}_{rank}.npz", **r.pop("state"))
+        res[tag] = r
     (out / f"{group}_{rank}.json").write_text(json.dumps(res))
 
 
@@ -3264,67 +3391,78 @@ SPACE_DENSE_ZERO = ("K1b", "K3", "K7", "K8")
 SPACE_EXPOSURE_ZERO = K_ROWS + ("K1b",)
 
 
-def space_band_state(state: dict, mode: str, rows, frame_h: int) -> dict:
+def space_band_state(state: dict, mode: str, rows, cfg) -> dict:
     """The part of one process's last state (``convert.state_to_numpy``)
     that the space rank holding frame rows `rows` keeps: the rows of its
     rings, trail canvas or running sum (the band, or for shearRate
-    ``modes.shear_rows``), every other field whole."""
-    s0, s1 = modes.shear_rows(rows, frame_h) if mode == "shearRate" \
+    ``modes.shear_rows``), android's accumulator over
+    ``modes.android_rows``, phaseCorrelate's previous frame over its ROI's
+    rows (``modes.roi_rows``), every other field whole."""
+    s0, s1 = modes.shear_rows(rows, cfg.ydim) if mode == "shearRate" \
         else rows
     cut = {"buffer": lambda v: v[:, s0:s1], "mean": lambda v: v[s0:s1],
            "overlay": lambda v: v[s0:s1], "sum_rgb": lambda v: v[s0:s1]}
+    if mode == "android":
+        k0, k1 = modes.android_rows(rows, cfg.ydim)
+        cut = {"accumulator": lambda v: v[k0:k1]}
+    if mode == "phaseCorrelate":
+        r0, r1 = modes.roi_rows(cfg)
+        cut = {"prev_resized": lambda v: v[r0:r1]}
     return {k: cut.get(k, lambda v: v)(v) for k, v in state.items()}
 
 
 def modes_space_phase(device, phase, out, space_modes, zero,
                       hw=(480, 640), raw_hw=(RAW_H, RAW_W), frames=FRAMES):
-    """[17] / [18] (`phase`) the space forms of `space_modes` on 2
-    processes sharing the card (``modes_space_rank``; the kernels are
-    built in this process beforehand) against this process's
-    ``run_frames`` of the same clip: the written frames and each rank's
-    last state (``space_band_state``) bit for bit; each rank's launches
-    equal to the one process's (counted around its ``run_frames``), the
-    kernels of zero(mode) none and every other kernel some on the card.
-    Beside the timings, one process's ``cli.main --videos`` of each mode,
-    its and each rank's peak device bytes above what was allocated before
-    the run (None off the card), and each rank's state bytes. Returns
-    what main prints."""
+    """[17] - [19] (`phase`) the space forms of the runs of `space_modes`
+    (``_space_run``) on 2 processes sharing the card
+    (``modes_space_rank``; the kernels are built in this process
+    beforehand) against this process's ``run_frames`` of the same clip:
+    the written frames and each rank's last state (``space_band_state``)
+    bit for bit; each rank's launches equal to the one process's
+    (counted around its ``run_frames``), the kernels of zero(mode) none
+    and every other kernel some on the card. Beside the timings, one
+    process's ``cli.main --videos`` of each run, its and each rank's
+    peak device bytes above what was allocated before the run (None off
+    the card), and each rank's state bytes. Returns what main prints,
+    by tag."""
     out.mkdir(parents=True, exist_ok=True)
     for f in out.glob("*.store"):
         f.unlink()
     h, w = hw
     band = h // 2
     group = out.name
+    runs = [_space_run(spec, frames) for spec in space_modes]
     _spawn_ranks(modes_space_rank, (str(out), device.type, hw, raw_hw,
                                     frames, group, space_modes))
     ranks = [json.loads((out / f"{group}_{r}.json").read_text())
              for r in range(2)]
-    clips = _stream_clips(1, frames + 1, raw_hw, 40)
-    (name, raw), = clips.items()
     dims = ["--xdim", str(w), "--ydim", str(h), "--device", device.type,
             "--no-host-prep"]
     cuda = device.type == "cuda"
     res, bad = {"modes": {}}, []
-    for mode in space_modes:
+    for tag, mode, extra, n in runs:
+        clips = _stream_clips(1, n + 1, raw_hw, 40)
+        (name, raw), = clips.items()
         cfg = cli._mode_config(cli.build_parser().parse_args(
-            [name, "--mode", mode, *dims]))
+            [name, "--mode", mode, *dims, *extra]))
         stats = runner.RunStats()
         reset_all_launches()
         ref = torch.stack(list(runner.run_frames(
             mode, raw, cfg, device=device, stats=stats))).cpu().numpy()
         one = all_launch_counts()
         want = convert.state_to_numpy(stats.state)
-        got = np.load(out / f"space_{mode}_s0.npy")
-        m = {"frames_equal": bool(got.shape == ref.shape and
+        got = np.load(out / f"space_{tag}_s0.npy")
+        m = {"mode": mode, "frames": n,
+             "frames_equal": bool(got.shape == ref.shape and
                                   np.array_equal(got, ref)),
              "states_equal": [], "state_bytes": [],
-             "launches": [r[mode]["launches"] for r in ranks],
+             "launches": [r[tag]["launches"] for r in ranks],
              "one_process_launches": one,
-             "peak_bytes": [r[mode]["peak_bytes"] for r in ranks]}
+             "peak_bytes": [r[tag]["peak_bytes"] for r in ranks]}
         for r in range(2):
             part = space_band_state(want, mode, (r * band, (r + 1) * band),
-                                    h)
-            dump = out / f"{group}_{mode}_{r}.npz"
+                                    cfg)
+            dump = out / f"{group}_{tag}_{r}.npz"
             with np.load(dump) as held:
                 m["states_equal"].append(
                     sorted(held.files) == sorted(part) and
@@ -3334,32 +3472,33 @@ def modes_space_phase(device, phase, out, space_modes, zero,
                                             for k in held.files))
             dump.unlink()   # the rings (averageHSV's: 553 MB a rank)
         if not m["frames_equal"] or not all(m["states_equal"]):
-            bad.append(f"{mode} frames/states {m['frames_equal']} "
+            bad.append(f"{tag} frames/states {m['frames_equal']} "
                        f"{m['states_equal']}")
         if not all(np.isfinite(v).all() for v in want.values()):
-            bad.append(f"{mode}: a state value is not finite")
+            bad.append(f"{tag}: a state value is not finite")
         for launches in m["launches"]:
             if launches != one or any(launches.get(k, 0) for k in
                                       zero(mode)):
-                bad.append(f"{mode} launches {launches} against one "
+                bad.append(f"{tag} launches {launches} against one "
                            f"process's {one}")
         unlaunched = [k for k in K_ROWS if k not in zero(mode) and
                       one.get(k, 0) == 0]
         if cuda and unlaunched:
-            bad.append(f"{mode}: {unlaunched} never launched")
-        m["timing"] = _space_timing(ranks[0][mode]["metrics"], frames)
-        res["modes"][mode] = m
+            bad.append(f"{tag}: {unlaunched} never launched")
+        m["timing"] = _space_timing(ranks[0][tag]["metrics"], n)
+        res["modes"][tag] = m
     if bad:
         raise AssertionError(f"{phase} space forms: {bad}: {res}")
-    for mode in space_modes:
+    for tag, mode, extra, n in runs:
+        clips = _stream_clips(1, n + 1, raw_hw, 40)
         if cuda:
             torch.cuda.reset_peak_memory_stats(device)
             before = torch.cuda.memory_allocated(device)
-        single = cli_run([str(out / "single"), "--videos", name, "--mode",
-                          mode, *dims], clips)
-        m = res["modes"][mode]
+        single = cli_run([str(out / "single"), "--videos", *clips, "--mode",
+                          mode, *dims, *extra], clips)
+        m = res["modes"][tag]
         m["timing"]["one_process_ms_per_frame"] = \
-            single["metrics"]["seconds"] * 1e3 / frames
+            single["metrics"]["seconds"] * 1e3 / n
         m["one_process_peak_bytes"] = \
             torch.cuda.max_memory_allocated(device) - before if cuda \
             else None
@@ -3394,46 +3533,137 @@ def trails_zero(mode: str) -> tuple:
         else SPACE_DENSE_ZERO
 
 
-def report_space_modes(tag, res, zero, card, rows) -> None:
-    """Print [17] / [18] (`tag`; ``modes_space_phase``'s `res`) and add
-    each mode's launches per frame on each rank to the kernel rows'
-    ``launches_by_space_path``."""
-    for mode, m in res["modes"].items():
-        tm = m["timing"]
-        per_frame = {k: v / FRAMES for k, v in m["launches"][0].items()}
-        print(f"{tag} cli.main --videos --mesh-space 2 --mode {mode}, 2 "
-              f"processes sharing the card ({tm['backend']}), mesh "
-              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
-              f"640x480: frames bit for bit equal to run_frames "
-              f"({m['frames_equal']}), each rank's last state equal to one "
-              f"process's rows ({m['states_equal']}); launches per rank "
-              f"equal to one process's {m['one_process_launches']} "
-              f"({FRAMES} frames; per frame {per_frame}, the first frame's "
-              f"K5/K6 included); {', '.join(zero(mode))} 0")
-        print(f"{tag} {mode} ms a frame per rank (host clock): "
-              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
-              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
-              f"exchanges per rank and frame: " + "; ".join(
-                  f"{x['exchanges_per_frame']:.3f} calls, "
-                  f"{x['exchange_ms_per_frame']:.3f} ms, "
-                  f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
-                  f"{x['output_gather_ms_per_frame']:.3f} ms)"
-                  for x in tm["ranks"]) + f"; card: {card}")
-        print(f"{tag} {mode} peak device bytes per rank above the run's "
-              f"start {m['peak_bytes']}, one process "
-              f"{m['one_process_peak_bytes']}; last state bytes per rank "
-              f"{m['state_bytes']}")
+def report_space_modes(tag, res, zero, card, rows) -> list:
+    """Write [17] - [19] (`tag`; ``modes_space_phase``'s `res`) to the
+    details, add each run's launches per frame on each rank to the kernel
+    rows' ``launches_by_space_path``, and return one summary line a
+    run."""
+    lines = []
+    for run, m in res["modes"].items():
+        tm, n, mode = m["timing"], m["frames"], m["mode"]
+        per_frame = {k: v / n for k, v in m["launches"][0].items()}
+        say(f"{tag} cli.main --videos --mesh-space 2 --mode {run}, 2 "
+            f"processes sharing the card ({tm['backend']}), mesh "
+            f"{tm['mesh']}, {n} frames of {RAW_W}x{RAW_H} at "
+            f"640x480: frames bit for bit equal to run_frames "
+            f"({m['frames_equal']}), each rank's last state equal to one "
+            f"process's rows ({m['states_equal']}); launches per rank "
+            f"equal to one process's {m['one_process_launches']} "
+            f"({n} frames; per frame {per_frame}, the first frame's "
+            f"K5/K6 included); {', '.join(zero(mode))} 0")
+        say(f"{tag} {run} ms a frame per rank (host clock): "
+            f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+            f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+            f"exchanges per rank and frame: " + "; ".join(
+                f"{x['exchanges_per_frame']:.3f} calls, "
+                f"{x['exchange_ms_per_frame']:.3f} ms, "
+                f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
+                f"{x['output_gather_ms_per_frame']:.3f} ms)"
+                for x in tm["ranks"]) + f"; card: {card}")
+        say(f"{tag} {run} peak device bytes per rank above the run's "
+            f"start {m['peak_bytes']}, one process "
+            f"{m['one_process_peak_bytes']}; last state bytes per rank "
+            f"{m['state_bytes']}")
         for r, x in enumerate(tm["ranks"]):
-            print(f"{tag} {mode} rank {r} exchanges by label (ms, bytes, "
-                  f"calls a frame): " + "; ".join(
-                      f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
-                      for k, v in
-                      x["by_label_ms_bytes_calls_per_frame"].items()))
+            say(f"{tag} {run} rank {r} exchanges by label (ms, bytes, "
+                f"calls a frame): " + "; ".join(
+                    f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
+                    for k, v in
+                    x["by_label_ms_bytes_calls_per_frame"].items()))
+        x0 = tm["ranks"][0]
+        lines.append(
+            f"{tag} {run}: {n} frames, frames/states equal "
+            f"{m['frames_equal']}/{all(m['states_equal'])}, launches = one "
+            f"process's; ms/frame ranks "
+            f"{[round(x['ms_per_frame'], 2) for x in tm['ranks']]} one "
+            f"{tm['one_process_ms_per_frame']:.2f}; exchanges/frame "
+            f"{x0['exchanges_per_frame']:.2f} "
+            f"({x0['exchange_bytes_per_frame']:.0f} B)")
     for i, k in enumerate(K_ROWS):
-        for mode, m in res["modes"].items():
+        for run, m in res["modes"].items():
             rows[i]["launches_by_space_path"][
-                f"{mode} --mesh-space 2, per frame on each rank"] = [
-                    r[k] / FRAMES for r in m["launches"]]
+                f"{run} --mesh-space 2, per frame on each rank"] = [
+                    r[k] / m["frames"] for r in m["launches"]]
+    return lines
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the space forms of android, phaseCorrelate, globalOrientation
+# and stabilizeTPU (--mesh-space 2)
+# ---------------------------------------------------------------------------
+
+PHASE19_TMP = CLI_TMP / "phase19"
+# (tag, mode, extra CLI flags, frames): android past its 90-frame overlay
+# warmup, stabilizeTPU with both feature engines (AKAZE takes 155-182 ms a
+# frame in one process)
+SPACE_REST_RUNS = (("android", "android", (), 100),
+                   ("phaseCorrelate", "phaseCorrelate", (), FRAMES),
+                   ("globalOrientation", "globalOrientation", (), FRAMES),
+                   ("stabilizeTPU", "stabilizeTPU", (), FRAMES),
+                   ("stabilizeTPU-akaze", "stabilizeTPU",
+                    ("--stab-features", "akaze"), 8))
+# each rank's launches a frame (one process's), the first frame's
+# expansion (K5/K6 4) apart; the kernels not named here launch none
+SPACE_REST_PER_FRAME = {
+    "android": {k: v for k, v in ANDROID_LAUNCHES.items() if v},
+    "stabilizeTPU": {"K8": 1}}
+
+
+def rest_zero(mode: str) -> tuple:
+    """The kernels [19]'s `mode` never launches."""
+    want = SPACE_REST_PER_FRAME.get(mode, {})
+    return tuple(k for k in K_ROWS + ("K1b",) if k not in want)
+
+
+def rest_space_phase(device, hw=(480, 640), raw_hw=(RAW_H, RAW_W),
+                     runs=SPACE_REST_RUNS):
+    """[19] android (the whole frame resized and its whole flow on every
+    rank, the accumulator over ``modes.android_rows``), phaseCorrelate
+    (the whole frame on every rank, the band and the ROI translated; no
+    exchange for either), globalOrientation (the grays gathered, the
+    whole step on every rank) and stabilizeTPU (the colour bands
+    gathered, the whole step and K8's warp on every rank; Harris and
+    AKAZE) in their space form (``modes_space_phase``):
+    besides its checks, each rank's launches equal
+    SPACE_REST_PER_FRAME's a frame (K5/K6 4 more for android's first
+    frame) and no other kernel's; android's red overlay pixels per rank
+    after the warmup, counted against the frames' own INTER_AREA resize
+    (``android_overlay_counts``)."""
+    res = modes_space_phase(device, "[19] android, phaseCorrelate, "
+                            "globalOrientation, stabilizeTPU", PHASE19_TMP,
+                            runs, rest_zero, hw=hw, raw_hw=raw_hw)
+    bad = []
+    for run, m in res["modes"].items():
+        per = SPACE_REST_PER_FRAME.get(m["mode"], {})
+        want = _launches(device, {
+            k: per.get(k, 0) * m["frames"] +
+            4 * (m["mode"] == "android" and k in ("K5", "K6"))
+            for k in K_ROWS + ("K1b",)})
+        for launches in m["launches"]:
+            if {k: launches.get(k, 0) for k in want} != want:
+                bad.append(f"{run} launches {launches}, expected {want}")
+    (tag, _, _, n), = [r for r in runs if r[1] == "android"]
+    res["android_overlay"] = android_overlay_counts(
+        device, np.load(PHASE19_TMP / f"space_{tag}_s0.npy"),
+        _stream_clips(1, n + 1, raw_hw, 40), hw)
+    if bad:
+        raise AssertionError(f"[19] launches: {bad}")
+    return res
+
+
+def android_overlay_counts(device, frames, clips, hw) -> list:
+    """android's red overlay pixels after the warmup in each rank's band of
+    the written frames: where the red channel differs from the frame's
+    own INTER_AREA resize (the overlay sets it to 255)."""
+    (raw,), band = clips.values(), hw[0] // 2
+    counts = [0, 0]
+    for t in range(ANDROID_OVERLAY_WARMUP, frames.shape[0]):
+        plain = img_ops.resize_area(torch.as_tensor(raw[t + 1]).to(device),
+                                    hw)[..., 2].cpu().numpy()
+        red = frames[t][..., 2] != plain
+        for r in range(2):
+            counts[r] += int(red[r * band:(r + 1) * band].sum())
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3474,8 +3704,8 @@ def device_ms(fn, reps):
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / reps
-    print("    torch.profiler recorded no device time in 3 sessions; timed "
-          "by CUDA events around the calls instead", flush=True)
+    say("    torch.profiler recorded no device time in 3 sessions; timed "
+        "by CUDA events around the calls instead")
     return wall_ms(fn, reps)
 
 
@@ -3520,9 +3750,9 @@ def device_times(fn, reps, name):
         if len(ts) >= reps // 2:
             return ts
         seen |= {e.name[:40] for e in cuda}
-    print(f"    torch.profiler recorded {len(ts)} of {reps} launches of "
-          f"{name} in each of 3 sessions (it recorded {sorted(seen)}); "
-          f"timed by CUDA events around each call instead", flush=True)
+    say(f"    torch.profiler recorded {len(ts)} of {reps} launches of "
+        f"{name} in each of 3 sessions (it recorded {sorted(seen)}); "
+        f"timed by CUDA events around each call instead")
     return event_times(fn, reps)
 
 
@@ -3727,10 +3957,10 @@ def call_ms(fn, reps):
         if by and min(len(t) for t in by.values()) >= reps // 2:
             return (sum(sorted(t)[len(t) // 2] for t in by.values()),
                     sorted(by))
-    print(f"    torch.profiler recorded "
-          f"{({k[:40]: len(t) for k, t in by.items()})} of {reps} launches "
-          f"in each of 3 sessions; timed by CUDA events around each call "
-          f"instead", flush=True)
+    say(f"    torch.profiler recorded "
+        f"{({k[:40]: len(t) for k, t in by.items()})} of {reps} launches "
+        f"in each of 3 sessions; timed by CUDA events around each call "
+        f"instead")
     t = sorted(event_times(fn, reps))
     return t[len(t) // 2], sorted(by)
 
@@ -3938,20 +4168,20 @@ def kernel_rows(device, launches, devs):
     k3_iters = int(iters.sum())
     k3_ops = 2 * area * (pts.shape[1] * len(pyr_prev) * 15 + k3_iters * 6)
     chain = int(iters.max())
-    print(f"[5] lk_track iterations at 640x480, 201 vertices: "
-          f"{k3_iters} in all, {k3_iters / pts.shape[1]:.2f} per point over "
-          f"{len(pyr_prev)} levels (at most "
-          f"{lkp.max_iters * len(pyr_prev)}); longest chain {chain}")
-    print(f"[5] lk_track 201 vertices: median {k3_ms * 1e3:.2f} us of "
-          f"{LK_REPS} launches (min {k3_t[0] * 1e3:.2f}, max "
-          f"{k3_t[-1] * 1e3:.2f}); {k3_ms * 1e3 / chain:.3f} us per "
-          f"iteration along the longest chain; latency bound {chain} x "
-          f"{L2_ROUND_TRIP_US} us = {chain * L2_ROUND_TRIP_US:.2f} us")
+    say(f"[5] lk_track iterations at 640x480, 201 vertices: "
+        f"{k3_iters} in all, {k3_iters / pts.shape[1]:.2f} per point over "
+        f"{len(pyr_prev)} levels (at most "
+        f"{lkp.max_iters * len(pyr_prev)}); longest chain {chain}")
+    say(f"[5] lk_track 201 vertices: median {k3_ms * 1e3:.2f} us of "
+        f"{LK_REPS} launches (min {k3_t[0] * 1e3:.2f}, max "
+        f"{k3_t[-1] * 1e3:.2f}); {k3_ms * 1e3 / chain:.3f} us per "
+        f"iteration along the longest chain; latency bound {chain} x "
+        f"{L2_ROUND_TRIP_US} us = {chain * L2_ROUND_TRIP_US:.2f} us")
     t_s, iters_s = lk_timing(device, lk_points(1280, 480, 640, 11).to(
         device)[None])
-    print(f"[5] lk_track 1280 points: median {t_s[len(t_s) // 2] * 1e3:.2f} "
-          f"us of {LK_REPS} launches (min {t_s[0] * 1e3:.2f}, max "
-          f"{t_s[-1] * 1e3:.2f}); longest chain {int(iters_s.max())}")
+    say(f"[5] lk_track 1280 points: median {t_s[len(t_s) // 2] * 1e3:.2f} "
+        f"us of {LK_REPS} launches (min {t_s[0] * 1e3:.2f}, max "
+        f"{t_s[-1] * 1e3:.2f}); longest chain {int(iters_s.max())}")
 
     # K5 and K6 at level 0 of the legacy 640x480 table (5, 544, 896) bf16
     # (bytes and ops: ``prep_bytes_ops``).
@@ -4122,23 +4352,36 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    DETAILS.parent.mkdir(parents=True, exist_ok=True)
+    with open(DETAILS, "w") as details:
+        _DETAILS.append(details)
+        try:
+            return _main()
+        finally:
+            _DETAILS.clear()
+
+
+def _main() -> int:
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    summary(f"card: {card}")
+    summary(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+            f"details in {DETAILS.relative_to(DETAILS.parents[1])}")
 
     t0 = time.perf_counter()
     reports = kernels.build()
     kernels.entry("farneback_update")
-    print(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
-    print(f"[1] K1 clusters the card holds at once, by cluster size: "
-          f"{fu.card_clusters()}")
-    print(f"[1] K8 clusters the card holds at once, by CTA size and "
-          f"cluster size: {warp_kernel.tile_clusters()}; its plans (S, "
-          f"CTAs, threads): " + "; ".join(
+    say(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
+    summary(f"[1] kernels built in {time.perf_counter() - t0:.2f} s; K1 "
+            f"clusters the card holds by size {fu.card_clusters()}")
+    say(f"[1] K1 clusters the card holds at once, by cluster size: "
+        f"{fu.card_clusters()}")
+    say(f"[1] K8 clusters the card holds at once, by CTA size and "
+        f"cluster size: {warp_kernel.tile_clusters()}; its plans (S, "
+        f"CTAs, threads): " + "; ".join(
               f"{name} {hw[0]}x{hw[1]} tile {t}: " + str(tuple(
                   warp_kernel._launch_plan(*hw, *t)[k]
                   for k in ("S", "ctas", "threads")))
@@ -4149,26 +4392,26 @@ def main() -> int:
     for stem, text in reports.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
-                print(f"    {stem}: {line.strip()}")
+                say(f"    {stem}: {line.strip()}")
 
     devs = check_kernels(480, 640, FarnebackParams.legacy(), dev)
-    print(f"[2] 640x480 L0 legacy (bres 4, sw 128, box 3): {devs}")
+    say(f"[2] 640x480 L0 legacy (bres 4, sw 128, box 3): {devs}")
     devs_hd = check_kernels(1080, 1920, FarnebackParams.windowed(), dev,
                             iterations=1)
-    print(f"[2] 1080p L0 windowed (bres 1, sw 640, gauss 10): {devs_hd}")
+    say(f"[2] 1080p L0 windowed (bres 1, sw 640, gauss 10): {devs_hd}")
     k1_levels = {}
     for name, (hw, preset) in K1_PYRAMIDS.items():
         rows, frame_us = update_levels(*hw, preset, dev)
         for r in rows:
-            print(f"[2] K1 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]} "
-                  f"(th {r['th']}, sw {r['sw']}, {r['blocks']} blocks, S "
-                  f"{r['S']}, {r['ctas']} CTAs, bres {r['bres']}, x"
-                  f"{r['iterations']}): max |d| {r['max_abs_err']}; "
-                  f"{r['us']:.2f} us/launch on the device (min "
-                  f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
-                  f"{r['bound_us']:.2f} us")
-        print(f"[2] K1 per {name} frame: {frame_us:.2f} us on the device "
-              f"(each level's median x its iterations)")
+            say(f"[2] K1 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]} "
+                f"(th {r['th']}, sw {r['sw']}, {r['blocks']} blocks, S "
+                f"{r['S']}, {r['ctas']} CTAs, bres {r['bres']}, x"
+                f"{r['iterations']}): max |d| {r['max_abs_err']}; "
+                f"{r['us']:.2f} us/launch on the device (min "
+                f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
+                f"{r['bound_us']:.2f} us")
+        say(f"[2] K1 per {name} frame: {frame_us:.2f} us on the device "
+            f"(each level's median x its iterations)")
         k1_levels[name] = {"frame_us": frame_us, "levels": rows}
     l0 = k1_levels["legacy 640x480"]["levels"][-1]
     if l0["ctas"] < 120:
@@ -4179,93 +4422,104 @@ def main() -> int:
         if name == "legacy 640x480":
             devs["k2_max"] = max(devs["k2_max"], k2_devs["k2_vs_plain"])
             devs.update(k4_devs)
-        print(f"[2] K2 at every level of {name} (half {preset.winsize // 2}"
-              f"; level, tile): {k2_devs}; K4 at its level changes: "
-              f"{k4_devs}")
+        say(f"[2] K2 at every level of {name} (half {preset.winsize // 2}"
+            f"; level, tile): {k2_devs}; K4 at its level changes: "
+            f"{k4_devs}")
     for name, (hw, preset) in PREP_CHECKS.items():
         prep_devs = check_prep(*hw, preset, dev)
         if name.startswith("640x480 legacy"):
             devs.update(prep_devs)
-        print(f"[2] K5/K6 at every level of the {name} tables: {prep_devs}")
+        say(f"[2] K5/K6 at every level of the {name} tables: {prep_devs}")
     k7_devs = check_warp(480, 640, dev)
     devs["k7_max"] = k7_devs["max_all"]
-    print(f"[2] K7 at 640x480, budget 16, flows up to +-24 px: {k7_devs}")
-    print(f"[2] K7 at 75x107, budget 4, flows up to +-7 px: "
-          f"{check_warp(75, 107, dev, budget=4, flow_px=7.0)}")
+    say(f"[2] K7 at 640x480, budget 16, flows up to +-24 px: {k7_devs}")
+    say(f"[2] K7 at 75x107, budget 4, flows up to +-7 px: "
+        f"{check_warp(75, 107, dev, budget=4, flow_px=7.0)}")
     slab_devs = check_slab_update(dev)
-    print(f"[2] K1 at row offset {slab_devs['roff']} (a 368-row slab at "
-          f"frame row 112, row tile {slab_devs['th']}), alone and with "
-          f"given base sums, and K1b: {slab_devs}")
+    say(f"[2] K1 at row offset {slab_devs['roff']} (a 368-row slab at "
+        f"frame row 112, row tile {slab_devs['th']}), alone and with "
+        f"given base sums, and K1b: {slab_devs}")
     k8_devs = check_tiles(dev)
     devs["k8_max"] = max(r["max"] for r in k8_devs.values())
     for name, r in k8_devs.items():
-        print(f"[2] K8 {name}: {r}")
+        say(f"[2] K8 {name}: {r}")
     for name, r in check_tiles_new_paths(dev).items():
         devs["k8_max"] = max(devs["k8_max"], r["max"])
-        print(f"[2] K8 {name}: {r}")
+        say(f"[2] K8 {name}: {r}")
     per_call = k8_kernels_per_call(dev)
-    print(f"[2] K8 device kernels per call: {per_call}")
+    say(f"[2] K8 device kernels per call: {per_call}")
     if any(len(v) != 1 for v in per_call.values()):
         raise AssertionError(f"K8: expected one kernel per call, got "
                              f"{per_call}")
     lk_devs = check_lk(dev, 201, timeline=True)
     devs["k3_px_max"] = lk_devs["px_max"]
-    print(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
-    print(f"[2] K3 at 640x480, 1280 points: {check_lk(dev, 1280)}")
-    print(f"[2] K3 at 640x480, 2 streams x 201 points: "
-          f"{check_lk(dev, 201, streams=2)}")
-    print(f"[2] K3 at 640x480, 192 points, window 21x21: "
-          f"{check_lk(dev, 192, p=LKParams.red_points())}")
-    print(f"[2] K3 at 240x320, one level, 30 points moving (2, 10) px "
-          f"(past the J patch margin): {check_lk_far(dev)}")
+    say(f"[2] K3 at 640x480, 201 timeline vertices: {lk_devs}")
+    say(f"[2] K3 at 640x480, 1280 points: {check_lk(dev, 1280)}")
+    say(f"[2] K3 at 640x480, 2 streams x 201 points: "
+        f"{check_lk(dev, 201, streams=2)}")
+    say(f"[2] K3 at 640x480, 192 points, window 21x21: "
+        f"{check_lk(dev, 192, p=LKParams.red_points())}")
+    say(f"[2] K3 at 240x320, one level, 30 points moving (2, 10) px "
+        f"(past the J patch margin): {check_lk_far(dev)}")
+    summary("[2] K1-K8 and K1b against their plain versions at the main "
+            "paths' shapes: within bounds (maxima in the details)")
 
     host_ms, ev_ms, launches, share = run_legacy(dev)
     per_frame = tuple(n / FRAMES for n in launches)
-    print(f"[3] legacy 640x480, {FRAMES} frames of {RAW_W}x{RAW_H}: "
-          f"{host_ms:.3f} ms/frame (host clock), {ev_ms:.3f} ms/frame "
-          f"(CUDA events), {1e3 / host_ms:.1f} fps; launches per frame "
-          f"K1 {per_frame[0]} K2 {per_frame[1]} K4 {per_frame[2]} K5 "
-          f"{per_frame[3]} K6 {per_frame[4]}; mask share {share:.4f}")
+    say(f"[3] legacy 640x480, {FRAMES} frames of {RAW_W}x{RAW_H}: "
+        f"{host_ms:.3f} ms/frame (host clock), {ev_ms:.3f} ms/frame "
+        f"(CUDA events), {1e3 / host_ms:.1f} fps; launches per frame "
+        f"K1 {per_frame[0]} K2 {per_frame[1]} K4 {per_frame[2]} K5 "
+        f"{per_frame[3]} K6 {per_frame[4]}; mask share {share:.4f}")
     if per_frame != (6.0, 6.0, 2.0, 3.0, 3.0):
         raise AssertionError(f"expected 6 launches of K1 and K2, 2 of K4 and "
                              f"3 of K5 and K6 per frame, got {per_frame}")
     small = compare_legacy_small(dev)
-    print(f"[3] legacy 192x256 on the card vs on the CPU: {small}")
+    say(f"[3] legacy 192x256 on the card vs on the CPU: {small}")
+    summary(f"[3] legacy 640x480: {host_ms:.3f} ms/frame (host), "
+            f"{ev_ms:.3f} (events); launches a frame K1 K2 K4 K5 K6 "
+            f"{per_frame}; mask share {share:.4f}")
 
     hd_ms, hd_mag = run_stream_1080p(dev)
-    print(f"[4] windowed stream 1920x1080: {hd_ms:.3f} ms/frame "
-          f"({1e3 / hd_ms:.1f} fps), mean |flow| {hd_mag:.3f} px")
+    say(f"[4] windowed stream 1920x1080: {hd_ms:.3f} ms/frame "
+        f"({1e3 / hd_ms:.1f} fps), mean |flow| {hd_mag:.3f} px")
     hd = stream_1080p_breakdown(dev)
-    print(f"[4] windowed stream 1920x1080, traced: "
-          f"{hd['device_ms_per_frame']:.3f} ms/frame of device kernels, "
-          f"{hd['launches_per_frame']:.0f} launches; K5 "
-          f"{hd['k5_us_per_frame']:.2f} us and K6 {hd['k6_us_per_frame']:.2f}"
-          f" us per frame ({hd['k5_records']} and {hd['k6_records']} "
-          f"records), {100 * hd['prep_share']:.1f}% of the device time; K2 "
-          f"{hd['k2_us_per_frame']:.2f} us ({hd['k2_records']} records) and "
-          f"K4 {hd['k4_us_per_frame']:.2f} us ({hd['k4_records']}) per "
-          f"frame; top kernels (us/frame) {hd['top_us_per_frame']}")
+    say(f"[4] windowed stream 1920x1080, traced: "
+        f"{hd['device_ms_per_frame']:.3f} ms/frame of device kernels, "
+        f"{hd['launches_per_frame']:.0f} launches; K5 "
+        f"{hd['k5_us_per_frame']:.2f} us and K6 {hd['k6_us_per_frame']:.2f}"
+        f" us per frame ({hd['k5_records']} and {hd['k6_records']} "
+        f"records), {100 * hd['prep_share']:.1f}% of the device time; K2 "
+        f"{hd['k2_us_per_frame']:.2f} us ({hd['k2_records']} records) and "
+        f"K4 {hd['k4_us_per_frame']:.2f} us ({hd['k4_records']}) per "
+        f"frame; top kernels (us/frame) {hd['top_us_per_frame']}")
+    summary(f"[4] windowed 1080p stream: {hd_ms:.3f} ms/frame, "
+            f"{hd['device_ms_per_frame']:.3f} device ms/frame, K5+K6 "
+            f"{100 * hd['prep_share']:.1f}% of it")
 
     tl_ms, tl_ev, tl_launches, _, _ = run_mode(dev, "timelines", FRAMES)
-    print(f"[6] timelines 640x480, 201 vertices, {FRAMES} frames of "
-          f"{RAW_W}x{RAW_H}: {tl_ms:.3f} ms/frame (host clock), "
-          f"{tl_ev:.3f} ms/frame (CUDA events), {1e3 / tl_ms:.1f} fps; K3 "
-          f"launches per frame {tl_launches / FRAMES}")
+    say(f"[6] timelines 640x480, 201 vertices, {FRAMES} frames of "
+        f"{RAW_W}x{RAW_H}: {tl_ms:.3f} ms/frame (host clock), "
+        f"{tl_ev:.3f} ms/frame (CUDA events), {1e3 / tl_ms:.1f} fps; K3 "
+        f"launches per frame {tl_launches / FRAMES}")
     if tl_launches != FRAMES:
         raise AssertionError(f"expected one K3 launch per frame, got "
                              f"{tl_launches} in {FRAMES} frames")
     for mode, n in (("streaklines", 10), ("populationMap", 5),
                     ("flowRedPoints", 5)):
         m_ms, m_ev, m_launches, verts, _ = run_mode(dev, mode, n)
-        print(f"[6] {mode} 640x480, {verts.numel() // 2} vertices, {n} "
-              f"frames: {m_ms:.3f} ms/frame (host clock), {m_ev:.3f} "
-              f"ms/frame (CUDA events); K3 launches per frame "
-              f"{m_launches / n}")
+        say(f"[6] {mode} 640x480, {verts.numel() // 2} vertices, {n} "
+            f"frames: {m_ms:.3f} ms/frame (host clock), {m_ev:.3f} "
+            f"ms/frame (CUDA events); K3 launches per frame "
+            f"{m_launches / n}")
         if m_launches != n:
             raise AssertionError(f"{mode}: expected one K3 launch per "
                                  f"frame, got {m_launches} in {n}")
-    print(f"[6] timelines 192x256 on the card vs on the CPU: "
-          f"{compare_timelines_small(dev)}")
+    say(f"[6] timelines 192x256 on the card vs on the CPU: "
+        f"{compare_timelines_small(dev)}")
+    summary(f"[6] timelines 640x480: {tl_ms:.3f} ms/frame, K3 "
+            f"{tl_launches / FRAMES} a frame; streaklines, populationMap, "
+            f"flowRedPoints K3 once a frame")
 
     dense = {}
     for mode, n in (("subtructAverageVectorWithWindow", FRAMES),
@@ -4282,86 +4536,90 @@ def main() -> int:
         want = {"K1": 3 * iters * n, "K2": 3 * iters * n, "K3": 0,
                 "K4": 2 * n, "K5": 3 * (n + 1), "K6": 3 * (n + 1), "K7": 0,
                 "K8": 0}
-        print(f"[7] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}: "
-              f"{m_ms:.3f} ms/frame (host clock), {m_ev:.3f} ms/frame (CUDA "
-              f"events), {1e3 / m_ms:.1f} fps; launches {m_n}")
+        say(f"[7] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}: "
+            f"{m_ms:.3f} ms/frame (host clock), {m_ev:.3f} ms/frame (CUDA "
+            f"events), {1e3 / m_ms:.1f} fps; launches {m_n}")
         if m_n != want:
             raise AssertionError(f"{mode}: expected launches {want}")
     held, peak = ring_step_memory(dev)
-    print(f"[7] averageVector 640x480: its state holds {held:.1f} MiB of "
-          f"device memory after init; the peak over 5 steps is {peak:.1f} "
-          f"MiB (ring_update writes a new ring each step)")
+    say(f"[7] averageVector 640x480: its state holds {held:.1f} MiB of "
+        f"device memory after init; the peak over 5 steps is {peak:.1f} "
+        f"MiB (ring_update writes a new ring each step)")
     pallas_cfg = ModeConfig(warp_impl="pallas")
     n = 10
     p_ms, p_ev, p_n, _ = run_dense_mode(dev, "subtructAverageVector", n,
                                         pallas_cfg)
-    print(f"[7] subtructAverageVector 640x480 on the portable engine "
-          f"(warp_impl='pallas'), {n} frames: {p_ms:.3f} ms/frame (host "
-          f"clock), {p_ev:.3f} ms/frame (CUDA events); launches {p_n}, K7 "
-          f"{p_n['K7'] / n} per frame")
+    say(f"[7] subtructAverageVector 640x480 on the portable engine "
+        f"(warp_impl='pallas'), {n} frames: {p_ms:.3f} ms/frame (host "
+        f"clock), {p_ev:.3f} ms/frame (CUDA events); launches {p_n}, K7 "
+        f"{p_n['K7'] / n} per frame")
     want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 3 * (n + 1),
             "K6": 3 * (n + 1), "K7": 9 * n, "K8": 0}
     if p_n != want:
         raise AssertionError(f"portable engine: expected launches {want}")
     t_ms, t_ev, t_n, _ = run_dense_mode(dev, "subtructAverageVector", n,
                                         ModeConfig(warp_impl="tiled"))
-    print(f"[7] subtructAverageVector 640x480 on the tiled warp "
-          f"(warp_impl='tiled'), {n} frames: {t_ms:.3f} ms/frame (host "
-          f"clock), {t_ev:.3f} ms/frame (CUDA events); launches {t_n}, K8 "
-          f"{t_n['K8'] / n} per frame")
+    say(f"[7] subtructAverageVector 640x480 on the tiled warp "
+        f"(warp_impl='tiled'), {n} frames: {t_ms:.3f} ms/frame (host "
+        f"clock), {t_ev:.3f} ms/frame (CUDA events); launches {t_n}, K8 "
+        f"{t_n['K8'] / n} per frame")
     want = dict(want, K7=0, K8=9 * n)
     if t_n != want:
         raise AssertionError(f"tiled warp: expected launches {want}")
     tiled_k8 = t_n["K8"] / n
     k8_frame = k8_kernels_per_frame(dev)
-    print(f"[7] K8 in one traced 640x480 frame of the tiled engine: "
-          f"{k8_frame['device_kernels']} device kernels, "
-          f"{k8_frame['calls']} calls")
+    say(f"[7] K8 in one traced 640x480 frame of the tiled engine: "
+        f"{k8_frame['device_kernels']} device kernels, "
+        f"{k8_frame['calls']} calls")
     if k8_frame != {"device_kernels": 9, "calls": 9}:
         raise AssertionError(f"tiled engine: expected 9 K8 kernels and "
                              f"calls per frame, got {k8_frame}")
-    print(f"[7] subtructAverageVectorWithWindow 192x256 on the card vs on "
-          f"the CPU: {compare_dense_small(dev)}")
-    print(f"[7] subtructAverageVectorWithWindow (warp_impl='tiled') "
-          f"192x256 on the card vs on the CPU: "
-          f"{compare_dense_small(dev, cfg=TILED_SMALL)}")
+    say(f"[7] subtructAverageVectorWithWindow 192x256 on the card vs on "
+        f"the CPU: {compare_dense_small(dev)}")
+    say(f"[7] subtructAverageVectorWithWindow (warp_impl='tiled') "
+        f"192x256 on the card vs on the CPU: "
+        f"{compare_dense_small(dev, cfg=TILED_SMALL)}")
     for impl in ("tiled", "fused"):
         sav = dense_small_readings(dev, "subtructAverageVector", 3,
                                    ModeConfig(xdim=256, ydim=192,
                                               warp_impl=impl))
-        print(f"[7] subtructAverageVector (warp_impl={impl!r}) 192x256 on "
-              f"the card vs on the CPU (pixels read, not bounded): {sav}")
+        say(f"[7] subtructAverageVector (warp_impl={impl!r}) 192x256 on "
+            f"the card vs on the CPU (pixels read, not bounded): {sav}")
         if sav["ring_mean_median_px"] > DENSE_MEDIAN_PX or \
                 sav["ring_mean_p99_px"] > DENSE_P99_PX:
             raise AssertionError(f"subtructAverageVector ({impl}) on {dev} "
                                  f"vs CPU: {sav}")
+    summary(f"[7] dense modes 640x480 (ms/frame, host): " + ", ".join(
+        f"{m} {v[0]:.2f}" for m, v in dense.items()) +
+        f"; portable engine K7 {p_n['K7'] / n:.0f} and tiled K8 "
+        f"{tiled_k8:.0f} a frame")
 
     launches = dict(zip(("K1", "K2", "K4", "K5", "K6"), launches),
                     K3=tl_launches, K7=p_n["K7"], K8=t_n["K8"])
     rows = kernel_rows(dev, launches, devs)
     for r in rows:
         lib = r["library_ms"]
-        print(f"[5] {r['name']}: {r['ms'] * 1e3:.2f} us/launch on the "
-              f"device ({r['wall_ms'] * 1e3:.2f} us per back-to-back call "
-              f"with the host), plain {r['plain_ms'] * 1e3:.2f} us, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
-              f"{'-' if lib is None else f'{lib * 1e3:.2f} us'}")
+        say(f"[5] {r['name']}: {r['ms'] * 1e3:.2f} us/launch on the "
+            f"device ({r['wall_ms'] * 1e3:.2f} us per back-to-back call "
+            f"with the host), plain {r['plain_ms'] * 1e3:.2f} us, bound "
+            f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), library "
+            f"{'-' if lib is None else f'{lib * 1e3:.2f} us'}")
     prep = {}
     for name, (hw, preset) in PREP_PYRAMIDS.items():
         levels, frame = prep_levels(*hw, preset, dev)
         for r in levels:
-            print(f"[5] K5/K6 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]}"
-                  f" (canvas {r['canvas'][0]}x{r['canvas'][1]}, window "
-                  f"{r['window']}): K5 {r['k5_us']:.2f} us (min "
-                  f"{r['k5_us_min']:.2f}, max {r['k5_us_max']:.2f}), bound "
-                  f"{r['k5_bound_us']:.2f} ({r['k5_bound_by']}), issue floor "
-                  f"{r['k5_floor_us']:.2f}; K6 {r['k6_us']:.2f} us (min "
-                  f"{r['k6_us_min']:.2f}, max {r['k6_us_max']:.2f}), bound "
-                  f"{r['k6_bound_us']:.2f} ({r['k6_bound_by']}), issue floor "
-                  f"{r['k6_floor_us']:.2f}")
-        print(f"[5] K5/K6 per {name} frame: K5 {frame['k5_us']:.2f} us "
-              f"(bound {frame['k5_bound_us']:.2f}), K6 {frame['k6_us']:.2f} "
-              f"us (bound {frame['k6_bound_us']:.2f}) on the device")
+            say(f"[5] K5/K6 {name} L{r['level']} {r['hw'][0]}x{r['hw'][1]}"
+                f" (canvas {r['canvas'][0]}x{r['canvas'][1]}, window "
+                f"{r['window']}): K5 {r['k5_us']:.2f} us (min "
+                f"{r['k5_us_min']:.2f}, max {r['k5_us_max']:.2f}), bound "
+                f"{r['k5_bound_us']:.2f} ({r['k5_bound_by']}), issue floor "
+                f"{r['k5_floor_us']:.2f}; K6 {r['k6_us']:.2f} us (min "
+                f"{r['k6_us_min']:.2f}, max {r['k6_us_max']:.2f}), bound "
+                f"{r['k6_bound_us']:.2f} ({r['k6_bound_by']}), issue floor "
+                f"{r['k6_floor_us']:.2f}")
+        say(f"[5] K5/K6 per {name} frame: K5 {frame['k5_us']:.2f} us "
+            f"(bound {frame['k5_bound_us']:.2f}), K6 {frame['k6_us']:.2f} "
+            f"us (bound {frame['k6_bound_us']:.2f}) on the device")
         prep[name] = (levels, frame)
     blur = blur_upsample_frames(dev)
     for name, res in blur.items():
@@ -4374,49 +4632,55 @@ def main() -> int:
                          f"{r['src'][0]}x{r['src'][1]} -> {r['dst'][0]}x"
                          f"{r['dst'][1]} (padded {r['dst_pad'][0]}x"
                          f"{r['dst_pad'][1]})")
-                print(f"[5] {kernel} {name} {where}: {r['us']:.2f} us (min "
-                      f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
-                      f"{r['bound_us']:.2f} ({r['bound_by']}), issue floor "
-                      f"{r['floor_us']:.2f}")
-            print(f"[5] {kernel} per {name} frame: {frame['us']:.2f} us on "
-                  f"the device (bound {frame['bound_us']:.2f}, issue floor "
-                  f"{frame['floor_us']:.2f})")
+                say(f"[5] {kernel} {name} {where}: {r['us']:.2f} us (min "
+                    f"{r['us_min']:.2f}, max {r['us_max']:.2f}), bound "
+                    f"{r['bound_us']:.2f} ({r['bound_by']}), issue floor "
+                    f"{r['floor_us']:.2f}")
+            say(f"[5] {kernel} per {name} frame: {frame['us']:.2f} us on "
+                f"the device (bound {frame['bound_us']:.2f}, issue floor "
+                f"{frame['floor_us']:.2f})")
     k8 = k8_levels(dev)
     for r in k8["levels"]:
-        print(f"[5] K8 tiled 640x480 L{r['level']} {r['hw'][0]}x"
-              f"{r['hw'][1]} (tile {r['tile'][0]}x{r['tile'][1]}, bres "
-              f"{r['bres']}, x{r['iterations']}): {r['us']:.2f} us/call on "
-              f"the device ({r['kernels']} kernel), bound "
-              f"{r['bound_us']:.2f} us (bytes)")
-    print(f"[5] K8 per tiled-engine 640x480 frame: {k8['frame']['us']:.2f} "
-          f"us on the device, {k8['frame']['kernels']} kernels (bound "
-          f"{k8['frame']['bound_us']:.2f} us); 1080p halo (A, floor Z, "
-          f"bound, us): {k8['halo_1080p']}")
+        say(f"[5] K8 tiled 640x480 L{r['level']} {r['hw'][0]}x"
+            f"{r['hw'][1]} (tile {r['tile'][0]}x{r['tile'][1]}, bres "
+            f"{r['bres']}, x{r['iterations']}): {r['us']:.2f} us/call on "
+            f"the device ({r['kernels']} kernel), bound "
+            f"{r['bound_us']:.2f} us (bytes)")
+    say(f"[5] K8 per tiled-engine 640x480 frame: {k8['frame']['us']:.2f} "
+        f"us on the device, {k8['frame']['kernels']} kernels (bound "
+        f"{k8['frame']['bound_us']:.2f} us); 1080p halo (A, floor Z, "
+        f"bound, us): {k8['halo_1080p']}")
     k8_new = k8_new_paths(dev)
     for r in k8_new["levels"]:
-        print(f"[5] K8 {r['path']} {r['hw'][0]}x{r['hw'][1]} C{r['channels']}"
-              f": {r['us']:.2f} us/call on the device, bound "
-              f"{r['bound_us']:.2f} us (bytes)")
-    print(f"[5] K8 per dense_lk 640x480 call (120 calls): "
-          f"{k8_new['dense_lk_call']['us']:.2f} us on the device (bound "
-          f"{k8_new['dense_lk_call']['bound_us']:.2f}); per stabilizeTPU "
-          f"frame: {k8_new['stabilize_frame']['us']:.2f} us (bound "
-          f"{k8_new['stabilize_frame']['bound_us']:.2f})")
+        say(f"[5] K8 {r['path']} {r['hw'][0]}x{r['hw'][1]} C{r['channels']}"
+            f": {r['us']:.2f} us/call on the device, bound "
+            f"{r['bound_us']:.2f} us (bytes)")
+    say(f"[5] K8 per dense_lk 640x480 call (120 calls): "
+        f"{k8_new['dense_lk_call']['us']:.2f} us on the device (bound "
+        f"{k8_new['dense_lk_call']['bound_us']:.2f}); per stabilizeTPU "
+        f"frame: {k8_new['stabilize_frame']['us']:.2f} us (bound "
+        f"{k8_new['stabilize_frame']['bound_us']:.2f})")
     rows[-1]["new_paths_us"] = {"dense_lk_call": k8_new["dense_lk_call"],
                                 "stabilize_frame": k8_new["stabilize_frame"]}
     k7_gs = k7_against_grid_sample(dev)
-    print(f"[5] K7 and grid_sample at 640x480, budget 16, alternated "
-          f"(median us of 50 launches per turn): {k7_gs}")
+    say(f"[5] K7 and grid_sample at 640x480, budget 16, alternated "
+        f"(median us of 50 launches per turn): {k7_gs}")
+    summary("[5] us a launch on the device (plain, bound): " + "; ".join(
+        f"{r['name']} {r['ms'] * 1e3:.2f} ({r['plain_ms'] * 1e3:.1f}, "
+        f"{r['bound_ms'] * 1e3:.2f})" for r in rows))
     bench = bench_rows(dev)
     for b in bench:
         ms = "  ".join(f"{v} {t * 1e3:.2f} us" for v, t in b["ms"].items())
-        print(f"[8] bench_warp 1080x1920 bres {b['bres']} sw {b['sw']} (th "
-              f"{b['th']}, grid {b['grid'][0]}x{b['grid'][1]}): {ms}; K8 "
-              f"{b['k8_device_ms'] * 1e3:.2f} us on the device, bound "
-              f"{b['k8_bound_ms'] * 1e3:.2f} us (bytes), plain "
-              f"{b['k8_plain_ms'] * 1e3:.2f} us; checksums {b['checksum']}")
+        say(f"[8] bench_warp 1080x1920 bres {b['bres']} sw {b['sw']} (th "
+            f"{b['th']}, grid {b['grid'][0]}x{b['grid'][1]}): {ms}; K8 "
+            f"{b['k8_device_ms'] * 1e3:.2f} us on the device, bound "
+            f"{b['k8_bound_ms'] * 1e3:.2f} us (bytes), plain "
+            f"{b['k8_plain_ms'] * 1e3:.2f} us; checksums {b['checksum']}")
     rows[-1]["ms_1080p_halo"] = {f"bres{b['bres']}_sw{b['sw']}":
                                  b["k8_device_ms"] for b in bench}
+    summary("[8] bench_warp 1080p K8 us on the device: " + ", ".join(
+        f"bres {b['bres']} sw {b['sw']} {b['k8_device_ms'] * 1e3:.2f} "
+        f"(bound {b['k8_bound_ms'] * 1e3:.2f})" for b in bench))
     rows[-1]["us_per_tiled_frame"] = k8["frame"]["us"]
     rows[-1]["levels_us"] = [[r["level"], r["us"], r["bound_us"]]
                              for r in k8["levels"]]
@@ -4449,134 +4713,164 @@ def main() -> int:
         per_frame = {k: v / n for k, v in m_n.items()}
         start = " from i = 89 (across the overlay warmup)" \
             if mode == "android" else ""
-        print(f"[9] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}{start}"
-              f": {m_ms:.3f} ms/frame (host clock), {m_kernels} device "
-              f"kernels per frame (one traced frame); launches per frame "
-              f"{per_frame}")
+        say(f"[9] {mode} 640x480, {n} frames of {RAW_W}x{RAW_H}{start}"
+            f": {m_ms:.3f} ms/frame (host clock), {m_kernels} device "
+            f"kernels per frame (one traced frame); launches per frame "
+            f"{per_frame}")
         want = ANDROID_LAUNCHES if mode == "android" else \
             dict.fromkeys(ANDROID_LAUNCHES, 0)
         if per_frame != want:
             raise AssertionError(f"{mode}: expected launches per frame "
                                  f"{want}")
     held, peak = ring_step_memory(dev, mode="averageHSV")
-    print(f"[9] averageHSV 640x480: its state holds {held:.1f} MiB of "
-          f"device memory after init; the peak over 5 steps is {peak:.1f} "
-          f"MiB (ring_update writes a new ring each step)")
+    say(f"[9] averageHSV 640x480: its state holds {held:.1f} MiB of "
+        f"device memory after init; the peak over 5 steps is {peak:.1f} "
+        f"MiB (ring_update writes a new ring each step)")
     for mode in SIMPLE_MODES:
-        print(f"[9] {mode} 192x256 on the card vs on the CPU: "
-              f"{compare_simple_small(dev, mode)}")
+        say(f"[9] {mode} 192x256 on the card vs on the CPU: "
+            f"{compare_simple_small(dev, mode)}")
+    summary(f"[9] android (from i = 89, across the overlay warmup) and "
+            f"{', '.join(SIMPLE_MODES[1:])} at 640x480: launches a frame as "
+            f"expected; averageHSV's ring {held:.1f} MiB, peak {peak:.1f} "
+            f"MiB; each at 192x256 on the card against the CPU")
 
     golden = detector_golden_1080p(dev)
-    print(f"[10] detector_1080p_iou {golden['detector_1080p_iou']:.4f}, "
-          f"detector_1080p_mask_frac {golden['detector_1080p_mask_frac']:.4f}"
-          f" (oracle {golden['oracle_mask_frac']:.4f}); detector_mask_scan "
-          f"over 48 frames of 1920x1080: {golden['host_ms_per_frame']:.3f} "
-          f"ms/frame (host clock); launches {golden['launches']}")
+    say(f"[10] detector_1080p_iou {golden['detector_1080p_iou']:.4f}, "
+        f"detector_1080p_mask_frac {golden['detector_1080p_mask_frac']:.4f}"
+        f" (oracle {golden['oracle_mask_frac']:.4f}); detector_mask_scan "
+        f"over 48 frames of 1920x1080: {golden['host_ms_per_frame']:.3f} "
+        f"ms/frame (host clock); launches {golden['launches']}")
+    summary(f"[10] detector_1080p_iou "
+            f"{golden['detector_1080p_iou']:.4f}, mask share "
+            f"{golden['detector_1080p_mask_frac']:.4f}, launches as the "
+            f"preset implies")
     stab_k8 = {}
     for features in ("harris", "akaze"):
         r = run_stabilize(dev, features)
         stab_k8[features] = r["launches_per_frame"]["K8"]
-        print(f"[11] stabilizeTPU ({features}) 640x480, {STAB_FRAMES} frames "
-              f"of a jittered clip through run_frames: "
-              f"{r['host_ms_per_frame']:.3f} ms/frame (host clock); "
-              f"{r['device_ms_per_frame']:.3f} ms/frame of device kernels, "
-              f"{r['device_kernels_per_frame']:.0f} device kernels per "
-              f"frame (traced), busy share {100 * r['busy_share']:.1f}%; "
-              f"launches per frame {r['launches_per_frame']}; host syncs "
-              f"per frame {r['host_syncs_per_frame']} ({r['syncs']}); "
-              f"top kernels (us/frame) {r['top_kernels_us_per_frame']}; "
-              f"residual jitter {r['output_jitter_px']:.4f} px against the "
-              f"raw {r['raw_jitter_px']:.4f} px (limit {STAB_RESIDUAL} x "
-              f"raw)")
-        print(f"[11] stabilizeTPU ({features}) 192x256 on the card vs on "
-              f"the CPU, the CPU's RANSAC noise injected (per step: H's "
-              f"frame-corner distance px, inliers card / CPU, equal pixel "
-              f"share, share more than one level apart): "
-              f"{compare_stabilize_small(dev, features)}")
+        say(f"[11] stabilizeTPU ({features}) 640x480, {STAB_FRAMES} frames "
+            f"of a jittered clip through run_frames: "
+            f"{r['host_ms_per_frame']:.3f} ms/frame (host clock); "
+            f"{r['device_ms_per_frame']:.3f} ms/frame of device kernels, "
+            f"{r['device_kernels_per_frame']:.0f} device kernels per "
+            f"frame (traced), busy share {100 * r['busy_share']:.1f}%; "
+            f"launches per frame {r['launches_per_frame']}; host syncs "
+            f"per frame {r['host_syncs_per_frame']} ({r['syncs']}); "
+            f"top kernels (us/frame) {r['top_kernels_us_per_frame']}; "
+            f"residual jitter {r['output_jitter_px']:.4f} px against the "
+            f"raw {r['raw_jitter_px']:.4f} px (limit {STAB_RESIDUAL} x "
+            f"raw)")
+        say(f"[11] stabilizeTPU ({features}) 192x256 on the card vs on "
+            f"the CPU, the CPU's RANSAC noise injected (per step: H's "
+            f"frame-corner distance px, inliers card / CPU, equal pixel "
+            f"share, share more than one level apart): "
+            f"{compare_stabilize_small(dev, features)}")
+        summary(f"[11] stabilizeTPU ({features}) 640x480: "
+                f"{r['host_ms_per_frame']:.3f} ms/frame, K8 "
+                f"{r['launches_per_frame']['K8']} a frame, residual jitter "
+                f"{r['output_jitter_px']:.4f} of raw "
+                f"{r['raw_jitter_px']:.4f} px; 192x256 card vs CPU within "
+                f"the STAB_* limits")
+    degenerate = compare_ransac_degenerate(dev)
+    say(f"[11] RANSAC with collinear samples, card vs CPU (H's frame-corner "
+        f"distance px, inlier counts card / CPU): {degenerate}")
+    summary(f"[11] RANSAC with collinear samples among its trials, card vs "
+            f"CPU: H {degenerate['mixed']['h_px']:.2e} px apart (limit "
+            f"{STAB_H_PX}), inliers {degenerate['mixed']['inliers']}; all "
+            f"trials collinear (no single answer, not bounded): "
+            f"{degenerate['all_collinear']['h_px']:.3g} px, inliers "
+            f"{degenerate['all_collinear']['inliers']}")
     work = benchmark_work(dev)
     lkw = work["dense_lk"]
-    print(f"[12] benchmark work, one 640x480 pair: farneback "
-          f"{work['farneback']['ms']:.2f} ms (launches "
-          f"{work['farneback']['launches']}); dense_lk (dense grid, "
-          f"{480 * 640} points) {lkw['ms']:.2f} ms, launches "
-          f"{lkw['launches']}; traced: {lkw['device_ms']:.3f} ms of device "
-          f"kernels, {lkw['device_kernels']} device kernels, busy share "
-          f"{100 * lkw['busy_share']:.1f}%, host syncs "
-          f"{lkw['host_syncs']}, top kernels (us) {lkw['top_kernels_us']}; "
-          f"status share "
-          f"{lkw['status_share']:.4f}, mean flow {lkw['mean_flow']}")
-    print(f"[12] dense_lk 192x256 on the card vs on the CPU: "
-          f"{compare_dense_lk_small(dev)}")
-    print(f"[12] farneback_stream_lagged vs farneback_stream on the card, "
-          f"640x480, 4 flows (max |d| each): {check_lagged(dev)}")
+    say(f"[12] benchmark work, one 640x480 pair: farneback "
+        f"{work['farneback']['ms']:.2f} ms (launches "
+        f"{work['farneback']['launches']}); dense_lk (dense grid, "
+        f"{480 * 640} points) {lkw['ms']:.2f} ms, launches "
+        f"{lkw['launches']}; traced: {lkw['device_ms']:.3f} ms of device "
+        f"kernels, {lkw['device_kernels']} device kernels, busy share "
+        f"{100 * lkw['busy_share']:.1f}%, host syncs "
+        f"{lkw['host_syncs']}, top kernels (us) {lkw['top_kernels_us']}; "
+        f"status share "
+        f"{lkw['status_share']:.4f}, mean flow {lkw['mean_flow']}")
+    say(f"[12] dense_lk 192x256 on the card vs on the CPU: "
+        f"{compare_dense_lk_small(dev)}")
+    say(f"[12] farneback_stream_lagged vs farneback_stream on the card, "
+        f"640x480, 4 flows (max |d| each): {check_lagged(dev)}")
     rows[-1]["launches_by_path"] = {
         "tiled engine per 640x480 frame": tiled_k8,
         "stabilizeTPU per frame (harris, akaze)": [stab_k8["harris"],
                                                    stab_k8["akaze"]],
         "dense_lk per 640x480 call": lkw["launches"]["K8"]}
+    summary(f"[12] benchmark work 640x480: farneback "
+            f"{work['farneback']['ms']:.2f} ms, dense_lk {lkw['ms']:.2f} ms "
+            f"(K8 {lkw['launches']['K8']}); dense_lk 192x256 card vs CPU "
+            f"and the lagged stream within bounds")
 
     t0 = time.perf_counter()
     c = cli_phase(dev)
-    print(f"[13] frame pump 1280x720 -> 640x480, 8 frames: {c['pump']}")
+    say(f"[13] frame pump 1280x720 -> 640x480, 8 frames: {c['pump']}")
     for name in ("no host prep", "pump"):
-        print(f"[13] cli.main --mode legacy ({name}), {FRAMES} frames of "
-              f"{RAW_W}x{RAW_H}: {c['legacy'][name]}")
-    print(f"[13] legacy: cli.main's frames (no host prep) equal "
-          f"run_frames' bit for bit; ms/frame (host clock, runs in the "
-          f"order A B C C B A) {c['legacy']['ms_per_frame']}; launches per "
-          f"frame {c['legacy']['launches_per_frame']}")
-    print(f"[13] cli.main --mode timelines, {FRAMES} frames: "
-          f"{c['timelines']}; frames (no host prep) equal run_frames' bit "
-          f"for bit")
-    print(f"[13] subtructAverageVector from 640x480 frames: gray upload vs "
-          f"BGR upload {c['gray_upload']}")
-    print(f"[13] cli.main --mode legacy --no-output: {c['no_output']}")
+        say(f"[13] cli.main --mode legacy ({name}), {FRAMES} frames of "
+            f"{RAW_W}x{RAW_H}: {c['legacy'][name]}")
+    say(f"[13] legacy: cli.main's frames (no host prep) equal "
+        f"run_frames' bit for bit; ms/frame (host clock, runs in the "
+        f"order A B C C B A) {c['legacy']['ms_per_frame']}; launches per "
+        f"frame {c['legacy']['launches_per_frame']}")
+    say(f"[13] cli.main --mode timelines, {FRAMES} frames: "
+        f"{c['timelines']}; frames (no host prep) equal run_frames' bit "
+        f"for bit")
+    say(f"[13] subtructAverageVector from 640x480 frames: gray upload vs "
+        f"BGR upload {c['gray_upload']}")
+    say(f"[13] cli.main --mode legacy --no-output: {c['no_output']}")
     for mode, r in c["resume"].items():
-        print(f"[13] kill and resume, {mode}: {r}; bit-identical")
-    print(f"[13] --mode benchmark: {c['benchmark']}")
-    print(f"[13] --mode validate: {c['validate']}")
-    print(f"[13] --mode legacy-full: {c['legacy_full']}")
-    print(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
+        say(f"[13] kill and resume, {mode}: {r}; bit-identical")
+    say(f"[13] --mode benchmark: {c['benchmark']}")
+    say(f"[13] --mode validate: {c['validate']}")
+    say(f"[13] --mode legacy-full: {c['legacy_full']}")
+    summary(f"[13] cli.main legacy and timelines frames equal run_frames' "
+            f"bit for bit; legacy ms/frame (A B C C B A) "
+            f"{c['legacy']['ms_per_frame']}; kill and resume bit-identical")
+    summary(f"[13] phase 13 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     v = videos_phase(dev)
-    print(f"[14] cli.main --videos --mode legacy --no-host-prep, {FRAMES} "
-          f"frames of {RAW_W}x{RAW_H} a stream, N = 1, 2, 4: every stream's "
-          f"frames equal run_frames' of its clip bit for bit, launches N x "
-          f"one stream's; per lock-step frame at N = 4: "
-          f"{v['launches_x4_per_lockstep_frame']}")
-    print(f"[14] fps (host clock; runs in the order single, N = 1, 2, 4, 4, "
-          f"2, 1, single): run_video of one clip {v['single_fps']} (stages "
-          f"s {v['single_stages_s']}); " + "; ".join(
+    say(f"[14] cli.main --videos --mode legacy --no-host-prep, {FRAMES} "
+        f"frames of {RAW_W}x{RAW_H} a stream, N = 1, 2, 4: every stream's "
+        f"frames equal run_frames' of its clip bit for bit, launches N x "
+        f"one stream's; per lock-step frame at N = 4: "
+        f"{v['launches_x4_per_lockstep_frame']}")
+    say(f"[14] fps (host clock; runs in the order single, N = 1, 2, 4, 4, "
+        f"2, 1, single): run_video of one clip {v['single_fps']} (stages "
+        f"s {v['single_stages_s']}); " + "; ".join(
               f"N = {n}: aggregate {v[f'x{n}']['aggregate_fps']}, per "
               f"stream {v[f'x{n}']['per_stream_fps']} (stages s "
               f"{v[f'x{n}']['stages_s']})" for n in (1, 2, 4)))
-    print(f"[14] traced N = 4 run: {v['x4'].get('traced')}")
-    print(f"[14] cli.main --videos --mode timelines, N = 2: "
-          f"{v['timelines_x2']}; frames equal run_frames' bit for bit")
-    print(f"[14] clips of 40 and 25 frames: {v['unequal']} (stopped at the "
-          f"shorter; no producer thread left; metrics written)")
+    say(f"[14] traced N = 4 run: {v['x4'].get('traced')}")
+    say(f"[14] cli.main --videos --mode timelines, N = 2: "
+        f"{v['timelines_x2']}; frames equal run_frames' bit for bit")
+    say(f"[14] clips of 40 and 25 frames: {v['unequal']} (stopped at the "
+        f"shorter; no producer thread left; metrics written)")
     sp = spatial_phase(dev)
     for r, rank in enumerate(sp["ranks"]):
-        print(f"[14] farneback_spatial 1920x1080, 2 ranks sharing the card "
-              f"(gloo), halo 128, rank {r} band {rank['band']}: " +
-              "; ".join(f"{name} {rank[name]['ms_per_pair']:.2f} ms a "
+        say(f"[14] farneback_spatial 1920x1080, 2 ranks sharing the card "
+            f"(gloo), halo 128, rank {r} band {rank['band']}: " +
+            "; ".join(f"{name} {rank[name]['ms_per_pair']:.2f} ms a "
                         f"pair, launches a pair "
                         f"{rank[name]['launches_per_pair']}"
                         for name in SPATIAL_ENGINES) +
-              f"; halo exchange (2 x 256 rows through host memory) ms "
-              f"{[round(t, 3) for t in rank['exchange_ms']]}")
-    print(f"[14] farneback_spatial against one process's farneback "
-          f"(bounds {SPATIAL_BOUNDS}): tiled (windowed, levels 1) "
-          f"{sp['tiled']}; fused (windowed) {sp['fused']}")
+            f"; halo exchange (2 x 256 rows through host memory) ms "
+            f"{[round(t, 3) for t in rank['exchange_ms']]}")
+    say(f"[14] farneback_spatial against one process's farneback "
+        f"(bounds {SPATIAL_BOUNDS}): tiled (windowed, levels 1) "
+        f"{sp['tiled']}; fused (windowed) {sp['fused']}")
     farm = farm_phase(dev)
-    print(f"[14] stream farm, 2 processes on the card (--coordinator, "
-          f"gloo), 2 legacy clips each: all_streams_fps "
-          f"{farm[0]['all_streams_fps']} = "
-          f"{farm[0]['metrics']['aggregate_fps']} + "
-          f"{farm[1]['metrics']['aggregate_fps']} in both ranks; one "
-          f"process's N = 4 aggregate {v['x4']['aggregate_fps']}; rank "
-          f"stages s {[f['metrics']['stages_s'] for f in farm]}")
+    say(f"[14] stream farm, 2 processes on the card (--coordinator, "
+        f"gloo), 2 legacy clips each: all_streams_fps "
+        f"{farm[0]['all_streams_fps']} = "
+        f"{farm[0]['metrics']['aggregate_fps']} + "
+        f"{farm[1]['metrics']['aggregate_fps']} in both ranks; one "
+        f"process's N = 4 aggregate {v['x4']['aggregate_fps']}; rank "
+        f"stages s {[f['metrics']['stages_s'] for f in farm]}")
     for i, k in enumerate(K_ROWS):
         rows[i]["launches_by_multi_device_path"] = {
             "run_videos legacy N = 4, per lock-step frame":
@@ -4587,39 +4881,42 @@ def main() -> int:
                 sp["ranks"][0]["tiled"]["launches_per_pair"][k],
             "farneback_spatial 1080p fused, per rank and pair":
                 sp["ranks"][0]["fused"]["launches_per_pair"][k]}
-    print(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
+    summary(f"[14] --videos N = 1, 2, 4 bit for bit, aggregate fps at N = "
+            f"4 {v['x4']['aggregate_fps']}; farneback_spatial within "
+            f"SPATIAL_BOUNDS; farm of 2 {farm[0]['all_streams_fps']} fps")
+    summary(f"[14] phase 14 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     sf = space_phase(dev)
     tm = sf["timing"]
-    print(f"[15] cli.main --videos --mesh-space 2, 2 processes sharing the "
-          f"card ({tm['backend']}), mesh {tm['mesh']}, halo {tm['halo']}, "
-          f"{FRAMES} frames of {RAW_W}x{RAW_H} at 640x480: timelines bit "
-          f"for bit equal to run_frames ({sf['timelines_equal']}); legacy "
-          f"overlays equal on {sf['overlay_share']:.6f}, rip masks on "
-          f"{sf['mask_share']:.6f} of pixels; worst frame's flow against "
-          f"one process {sf['flow_worst']} (bounds {SPATIAL_BOUNDS}); UPPER "
-          f"equal on both ranks every frame ({sf['upper_equal']}); slab "
-          f"rows {[r['slab_rows'] for r in sf['ranks']]}")
+    say(f"[15] cli.main --videos --mesh-space 2, 2 processes sharing the "
+        f"card ({tm['backend']}), mesh {tm['mesh']}, halo {tm['halo']}, "
+        f"{FRAMES} frames of {RAW_W}x{RAW_H} at 640x480: timelines bit "
+        f"for bit equal to run_frames ({sf['timelines_equal']}); legacy "
+        f"overlays equal on {sf['overlay_share']:.6f}, rip masks on "
+        f"{sf['mask_share']:.6f} of pixels; worst frame's flow against "
+        f"one process {sf['flow_worst']} (bounds {SPATIAL_BOUNDS}); UPPER "
+        f"equal on both ranks every frame ({sf['upper_equal']}); slab "
+        f"rows {[r['slab_rows'] for r in sf['ranks']]}")
     for r, rank in enumerate(sf["ranks"]):
-        print(f"[15] rank {r} launches: legacy "
-              f"{rank['legacy']['launches']}, timelines "
-              f"{rank['timelines']['launches']} ({FRAMES} frames)")
-    print(f"[15] ms a frame per rank (host clock, legacy): "
-          f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
-          f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
-          f"exchanges per rank and frame: " + "; ".join(
+        say(f"[15] rank {r} launches: legacy "
+            f"{rank['legacy']['launches']}, timelines "
+            f"{rank['timelines']['launches']} ({FRAMES} frames)")
+    say(f"[15] ms a frame per rank (host clock, legacy): "
+        f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+        f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+        f"exchanges per rank and frame: " + "; ".join(
               f"{x['exchanges_per_frame']:.3f} calls, "
               f"{x['exchange_ms_per_frame']:.3f} ms, "
               f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
               f"{x['output_gather_ms_per_frame']:.3f} ms)"
               for x in tm["ranks"]) +
-          f"; timelines ms a frame per rank "
-          f"{[round(x, 3) for x in tm['timelines_ms_per_frame']]}; card: "
-          f"{card}")
+        f"; timelines ms a frame per rank "
+        f"{[round(x, 3) for x in tm['timelines_ms_per_frame']]}; card: "
+        f"{card}")
     for r, x in enumerate(tm["ranks"]):
-        print(f"[15] rank {r} legacy exchanges by kind (ms, bytes, calls a "
-              f"frame): " + "; ".join(
+        say(f"[15] rank {r} legacy exchanges by kind (ms, bytes, calls a "
+            f"frame): " + "; ".join(
                   f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
                   for k, v in x["by_label_ms_bytes_calls_per_frame"].items()))
     per_rank = {k: v / FRAMES for k, v in
@@ -4632,37 +4929,42 @@ def main() -> int:
             "timelines --mesh-space 2, per rank and frame": per_rank_tl[k]}
     rows.append(k1b_row(dev, sf["ranks"][0]["legacy"]["launches"]["K1b"],
                         slab_devs["k1b_rel"], per_rank["K1b"]))
-    print(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
+    summary(f"[15] --mesh-space 2: timelines bit for bit "
+            f"{sf['timelines_equal']}; legacy overlays {sf['overlay_share']:.4f}"
+            f", masks {sf['mask_share']:.4f} equal; legacy ms/frame ranks "
+            f"{[round(x['ms_per_frame'], 2) for x in tm['ranks']]} one "
+            f"{tm['one_process_ms_per_frame']:.2f}")
+    summary(f"[15] phase 15 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     ps = particles_space_phase(dev)
     for mode, m in ps["modes"].items():
         tm = m["timing"]
-        print(f"[16] cli.main --videos --mesh-space 2 --mode {mode}, 2 "
-              f"processes sharing the card ({tm['backend']}), mesh "
-              f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
-              f"640x480: frames bit for bit equal to run_frames "
-              f"({m['frames_equal']}), both ranks' last states equal "
-              f"({m['states_equal']}); K3 launches per rank "
-              f"{m['k3_launches']} of {FRAMES} frames (" + ", ".join(
+        say(f"[16] cli.main --videos --mesh-space 2 --mode {mode}, 2 "
+            f"processes sharing the card ({tm['backend']}), mesh "
+            f"{tm['mesh']}, {FRAMES} frames of {RAW_W}x{RAW_H} at "
+            f"640x480: frames bit for bit equal to run_frames "
+            f"({m['frames_equal']}), both ranks' last states equal "
+            f"({m['states_equal']}); K3 launches per rank "
+            f"{m['k3_launches']} of {FRAMES} frames (" + ", ".join(
                   f"rank {r} " + ("owned no point on any frame" if n == 0
                                   else "owned points on every frame"
                                   if n == FRAMES else
                                   f"owned no point on {FRAMES - n} frames")
                   for r, n in enumerate(m["k3_launches"])) +
-              f"); every other kernel 0")
-        print(f"[16] {mode} ms a frame per rank (host clock): "
-              f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
-              f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
-              f"exchanges per rank and frame: " + "; ".join(
+            f"); every other kernel 0")
+        say(f"[16] {mode} ms a frame per rank (host clock): "
+            f"{[round(x['ms_per_frame'], 3) for x in tm['ranks']]}; one "
+            f"process, same clip: {tm['one_process_ms_per_frame']:.3f}; "
+            f"exchanges per rank and frame: " + "; ".join(
                   f"{x['exchanges_per_frame']:.3f} calls, "
                   f"{x['exchange_ms_per_frame']:.3f} ms, "
                   f"{x['exchange_bytes_per_frame']:.0f} B (output gather "
                   f"{x['output_gather_ms_per_frame']:.3f} ms)"
                   for x in tm["ranks"]) + f"; card: {card}")
         for r, x in enumerate(tm["ranks"]):
-            print(f"[16] {mode} rank {r} exchanges by kind (ms, bytes, "
-                  f"calls a frame): " + "; ".join(
+            say(f"[16] {mode} rank {r} exchanges by kind (ms, bytes, "
+                f"calls a frame): " + "; ".join(
                       f"{k} {v[0]:.3f} ms, {v[1]:.0f} B, {v[2]:.3f}"
                       for k, v in
                       x["by_label_ms_bytes_calls_per_frame"].items()))
@@ -4671,23 +4973,46 @@ def main() -> int:
             rows[i]["launches_by_space_path"][
                 f"{mode} --mesh-space 2, per frame on each rank"] = [
                     r[k] / FRAMES for r in m["launches"]]
-    print(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
+    for mode, m in ps["modes"].items():
+        summary(f"[16] {mode}: frames/states equal {m['frames_equal']}/"
+                f"{m['states_equal']}; K3 per rank {m['k3_launches']}; "
+                f"ms/frame ranks "
+                f"{[round(x['ms_per_frame'], 2) for x in m['timing']['ranks']]}"
+                f" one {m['timing']['one_process_ms_per_frame']:.2f}")
+    summary(f"[16] phase 16 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     ds = dense_space_phase(dev)
-    report_space_modes("[17]", ds, lambda mode: SPACE_DENSE_ZERO, card,
-                       rows)
-    print(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
+    for line in report_space_modes("[17]", ds,
+                                   lambda mode: SPACE_DENSE_ZERO, card,
+                                   rows):
+        summary(line)
+    summary(f"[17] phase 17 took {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     ts = trails_space_phase(dev)
-    report_space_modes("[18]", ts, trails_zero, card, rows)
-    print(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s")
-    print(f"card: {card}")
-    print(json.dumps({"kernels": rows}))
+    for line in report_space_modes("[18]", ts, trails_zero, card, rows):
+        summary(line)
+    summary(f"[18] phase 18 took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rs = rest_space_phase(dev)
+    for line in report_space_modes("[19]", rs, rest_zero, card, rows):
+        summary(line)
+    over = rs["android_overlay"]
+    summary(f"[19] android red overlay pixels per rank after the "
+            f"{ANDROID_OVERLAY_WARMUP}-frame warmup: {over}" +
+            ("" if sum(over) else " (the synthetic clip gives no rip; "
+             "tests/test_torch_space_rest.py draws rip pixels across the "
+             "band boundaries on the CPU)"))
+    summary(f"[19] phase 19 took {time.perf_counter() - t0:.1f} s")
+    summary(f"card: {card}")
+    say(json.dumps({"kernels": rows}))
+    print(compact_json({"kernels": [short_row(r) for r in rows]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -116,7 +116,8 @@ def _box_sums(c: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return c[y + win, x + win] - c[y + win, x] - c[y, x + win] + c[y, x]
 
 
-def android_local_rip(out: torch.Tensor, localwin: int = 20) -> torch.Tensor:
+def android_local_rip(out: torch.Tensor, localwin: int = 20,
+                      band: "tuple[int, int] | None" = None) -> torch.Tensor:
     """The sliding-window co-occurrence detector
     (jni/ripcurrents.cpp:289-309): a window (stride localwin, size
     2*localwin) where both the mid-duty (z) and the low-duty (y)
@@ -124,16 +125,26 @@ def android_local_rip(out: torch.Tensor, localwin: int = 20) -> torch.Tensor:
     low-duty pixels with 4 votes form the rip overlay. -> (H, W) uint8
     mask (255 = rip).
 
+    band=(row0, frame_h): out is rows [row0, row0 + its height) of a
+    frame_h-row frame, and the windows anchored on the frame's grid that
+    lie inside those rows vote; a row's mask is the whole frame's where
+    every window covering it lies inside (``pipelines/modes.py:
+    android_rows`` gives the rows a band needs).
+
     The counts are int32 prefix-sum differences, so they are exact and
     `votes == 4` is an integer test."""
     h, w = out.shape[0], out.shape[1]
+    row0, frame_h = band or (0, h)
     dev = out.device
     hi = (out[..., 2] != 0).to(torch.int32)
     lo = (out[..., 1] != 0).to(torch.int32)
     win = 2 * localwin
     thresh = localwin * localwin / 1.5
-    # the reference loops y < H - 2*localwin (exclusive)
-    ys = torch.arange(0, max(h - win, 0), localwin, device=dev)
+    # the reference loops y < H - 2*localwin (exclusive); the anchors
+    # whose windows lie in out's rows, in out's coordinates
+    lo_y = -(-row0 // localwin) * localwin - row0
+    hi_y = min(max(frame_h - win, 0), row0 + h - win + 1) - row0
+    ys = torch.arange(lo_y, max(hi_y, lo_y), localwin, device=dev)
     xs = torch.arange(0, max(w - win, 0), localwin, device=dev)
 
     def prefix(a, pad):

@@ -16,12 +16,8 @@ N --process-id I` makes each of N processes one member of a stream farm
 (``parallel/distributed.py``, a gloo process group), each running its
 own videos. `--mesh-space K > 1` with the farm's flags splits each
 frame's rows over K processes (a world of S x K: S stream groups of K
-ranks, all running the same command with the same videos); it runs the
-modes with a space form (legacy, timelines, streaklines, populationMap,
-flowRedPoints, subtructAverageVector, subtructAverageVectorWithWindow,
-shearRate, averageVector, streamlines, timelinesOnSubtractAverageVector,
-timelinesFarne, averageHSV, timex, brightColor: ``common.SPACE_MODES``)
-and exits 2 for the others.
+ranks, all running the same command with the same videos); every
+registered mode has a space form (``common.register``).
 """
 
 from __future__ import annotations
@@ -54,8 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-space", type=int, default=1, metavar="K",
                    help="with --videos: additionally shard frame rows "
                         "over K devices (one process each; the farm "
-                        "flags start them; the modes with a space "
-                        "form)")
+                        "flags start them)")
     p.add_argument("--mode", default="timelines",
                    choices=sorted(set(MODES) | set(SPECIAL_MODES)),
                    help="pipeline mode (reference default: timelines)")
@@ -389,7 +384,7 @@ def _refuse(args) -> "str | None":
         return "an input video is required (positional or --videos)"
     if args.mesh_space != 1:
         from ripcurrents_tpu_torch.pipelines.multirunner import (
-            SPACE_MODES, _stream_mesh)
+            _stream_mesh)
         try:
             _stream_mesh(len(args.videos or ()) or 1, args.mesh_space,
                          world=args.num_processes or 1, ydim=args.ydim)
@@ -397,10 +392,6 @@ def _refuse(args) -> "str | None":
             return str(e)
         if not args.videos:
             return f"--mesh-space {args.mesh_space} needs --videos"
-        if args.mode not in SPACE_MODES:
-            return (f"--mesh-space {args.mesh_space} runs the modes with a "
-                    f"space form ({', '.join(sorted(SPACE_MODES))}); "
-                    f"--mode {args.mode} has none")
     return None
 
 

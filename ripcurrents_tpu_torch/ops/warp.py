@@ -41,14 +41,18 @@ def bilinear_sample(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
     return top * (1 - fy) + bot * fy
 
 
-def translate(img: torch.Tensor, dx, dy, border: str = "zero") -> torch.Tensor:
+def translate(img: torch.Tensor, dx, dy, border: str = "zero",
+              rows: "tuple[int, int] | None" = None) -> torch.Tensor:
     """warpAffine with the translation [[1, 0, dx], [0, 1, dy]] and
     bilinear interpolation: output (x, y) samples the input at
     (x - dx, y - dy) (main.cpp:1753-1755). dx, dy: numbers or 0-d
-    tensors."""
+    tensors. `rows` (i0, i1): only those output rows of the whole
+    frame's translation, each pixel sampled from the whole `img` as
+    the whole frame's is (its rows reach |dy| + 1 past the band)."""
     h, w = img.shape[0], img.shape[1]
+    i0, i1 = rows or (0, h)
     ys, xs = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=img.device),
+        torch.arange(i0, i1, dtype=torch.float32, device=img.device),
         torch.arange(w, dtype=torch.float32, device=img.device),
         indexing="ij")
     out = bilinear_sample(img.to(torch.float32), xs - dx, ys - dy,

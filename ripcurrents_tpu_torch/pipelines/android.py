@@ -10,6 +10,16 @@ pixels red after a 90-frame warmup.
 
 The reference processes 1 of every 3 frames: that is a decode policy of
 the runner; this step consumes the frames it is handed.
+
+The space form (mesh.space K > 1): each rank is fed the whole frame
+(``common.AREA_INPUT``), resizes it with INTER_AREA as one process does
+and computes the whole frame's flow, its STABILIZE mean and the
+cumulative histogram of its magnitude, so the threshold is one
+process's with no exchange (the STABILIZE buffers stay whole: the
+histogram reads the whole mean flow). The accumulator, the duty and the
+local windows are kept over the band's rows and the rows of every
+window that covers them (``modes.android_rows``); the red overlay is the
+band's. Frames and states equal one process's bit for bit.
 """
 
 from __future__ import annotations
@@ -24,13 +34,14 @@ from ripcurrents_tpu_torch.config import (ANDROID_OVERLAY_WARMUP,
                                           FarnebackParams, HistogramParams,
                                           Thresholds)
 from ripcurrents_tpu_torch.ops import hist as histops
-from ripcurrents_tpu_torch.ops.image import bgr_to_gray, resize_area
 from ripcurrents_tpu_torch.ops.polar import flow_to_polar
 from ripcurrents_tpu_torch.pipelines.common import (FlowStream, ModeConfig,
                                                     fb_preset,
                                                     flow_stream_init,
                                                     flow_stream_step,
-                                                    register, to_device)
+                                                    prep_frame, register,
+                                                    space_rows, to_device)
+from ripcurrents_tpu_torch.pipelines.modes import android_rows
 
 STABILIZE = 2  # jni/ripcurrents.cpp:10
 
@@ -40,39 +51,42 @@ class AndroidState(NamedTuple):
     loop and never resets them (jni:126-127)."""
     fstream: FlowStream
     stable: torch.Tensor       # (STABILIZE, H, W, 2) flow accumulation
-    accumulator: torch.Tensor  # (H, W) fast-pixel counts
+    accumulator: torch.Tensor  # (H, W) fast-pixel counts (a space rank:
+    #                            its ``android_rows``)
     hist: torch.Tensor         # (bins,) int32
     histsum: torch.Tensor      # () int32
     i: torch.Tensor            # () int32 frames stepped
 
 
-def make_android(cfg: ModeConfig, device="cuda"):
-    """-> (init(first_raw) -> AndroidState, step(state, raw) ->
+def make_android(cfg: ModeConfig, device="cuda", mesh=None):
+    """-> (init(first_raw) -> AndroidState, step(state, raw, src=None) ->
     (AndroidState, overlay BGR uint8)). device="cuda" (the default)
-    raises without a card; device="cpu" runs the plain versions."""
+    raises without a card; device="cpu" runs the plain versions. `mesh`
+    with a 'space' axis of K > 1: the space form (module doc)."""
     dev = resolve_device(device)
     fb = fb_preset(FarnebackParams.android(), cfg)
     hist_p = HistogramParams.android()
     thr = Thresholds(upper_init=100.0)
-
-    def prep(raw):
-        resized = resize_area(to_device(raw, dev), (cfg.ydim, cfg.xdim))
-        return resized, bgr_to_gray(resized)           # jni:141,163
+    rows = space_rows(cfg, mesh)
+    k0, k1 = android_rows(rows, cfg.ydim) if rows else (0, cfg.ydim)
+    b0, b1 = rows or (0, cfg.ydim)
 
     def init(first_raw) -> AndroidState:
-        _, gray = prep(first_raw)
+        _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         return AndroidState(
             flow_stream_init(gray, fb),
             torch.zeros((STABILIZE, cfg.ydim, cfg.xdim, 2),
                         dtype=torch.float32, device=dev),
-            torch.zeros((cfg.ydim, cfg.xdim), dtype=torch.float32,
+            torch.zeros((k1 - k0, cfg.xdim), dtype=torch.float32,
                         device=dev),
             torch.zeros(hist_p.bins, dtype=torch.int32, device=dev),
             zero, zero)
 
-    def step(state: AndroidState, raw):
-        resized, gray = prep(raw)
+    def step(state: AndroidState, raw, src=None):
+        # jni:141,163: INTER_AREA and gray, of the whole frame (AREA_INPUT)
+        resized, gray = prep_frame(to_device(raw, dev), cfg, first=True)
+        resized = resized[b0:b1]
         i = state.i + 1
         flow_raw, fs = flow_stream_step(state.fstream, gray, fb)
 
@@ -100,11 +114,13 @@ def make_android(cfg: ModeConfig, device="cuda"):
         histsum = torch.where(big, histsum // 2, histsum)
         upper = histops.upper_from_1d(hist, histsum, hist_p)
 
-        _, _, fast = cls.classify_android(ang, mag, upper, thr.mid,
-                                          thr.lower)
+        _, _, fast = cls.classify_android(ang[k0:k1], mag[k0:k1], upper,
+                                          thr.mid, thr.lower)
         accumulator = state.accumulator + fast
         out = cls.android_duty_viz(accumulator, i)
-        rip_mask = cls.android_local_rip(out, localwin=20)
+        rip_mask = cls.android_local_rip(out, localwin=20,
+                                         band=(k0, cfg.ydim))[b0 - k0:
+                                                              b1 - k0]
 
         # the red overlay after the warmup (jni:313-320)
         warm = i > ANDROID_OVERLAY_WARMUP
@@ -118,6 +134,6 @@ def make_android(cfg: ModeConfig, device="cuda"):
     return init, step
 
 
-@register("android")
-def android_mode(cfg: ModeConfig, device="cuda"):
-    return make_android(cfg, device=device)
+@register("android", area_input=True)
+def android_mode(cfg: ModeConfig, device="cuda", mesh=None):
+    return make_android(cfg, device=device, mesh=mesh)

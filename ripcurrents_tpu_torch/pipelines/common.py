@@ -173,30 +173,35 @@ MODES: Dict[str, Callable] = {}
 # frames.
 GRAY_INPUT: set = set()
 
-# Modes with a space form: factory(cfg, device, mesh=mesh) with
+# Modes that resize every frame with INTER_AREA (android, jni:141;
+# phaseCorrelate, main.cpp:1736). A band of that resize does not equal
+# the whole resize's rows bit for bit (its weights are not exact in
+# float32), so a space rank of such a mode is fed the whole frame, as
+# one process is, resizes it whole and cuts its band: no exchange.
+AREA_INPUT: set = set()
+
+# Every mode has a space form: factory(cfg, device, mesh=mesh) with
 # mesh.space > 1 splits the step's rows over the mesh's 'space' group;
 # init takes the whole first frame, step(state, raw, src=None) a frame
 # or its source rows (``prep_frame``'s `src`) and returns the band's
 # output rows. legacy runs its flow on a slab of its band
-# (``parallel/spatial.py``); timelines, streaklines, populationMap and
-# flowRedPoints (the vertices split by row), subtructAverageVector,
-# subtructAverageVectorWithWindow, shearRate and averageVector (the
-# per-pixel rings split by row), streamlines,
-# timelinesOnSubtractAverageVector and timelinesFarne (the trail canvas
-# split by row) gather the bands' grays and compute the whole frame's
-# flow or tracks on every rank; averageHSV, timex and brightColor keep
-# their band's per-pixel state and exchange nothing
-# (``pipelines/modes.py``).
-SPACE_MODES: set = set()
+# (``parallel/spatial.py``); the others that need the whole frame (the
+# flow, the tracks, an orientation vote, features) gather the bands'
+# grays, or the bands' colour frames (stabilizeTPU), and compute it on
+# every rank, keeping per pixel only the band's rows and what the band's
+# output reads; android and phaseCorrelate (AREA_INPUT) resize the whole
+# frame on every rank and exchange nothing; averageHSV, timex and
+# brightColor keep their band's per-pixel state and exchange nothing
+# (``pipelines/modes.py``, ``pipelines/android.py``).
 
 
-def register(name: str, gray_input: bool = False, space: bool = False):
+def register(name: str, gray_input: bool = False, area_input: bool = False):
     def deco(fn):
         MODES[name] = fn
         if gray_input:
             GRAY_INPUT.add(name)
-        if space:
-            SPACE_MODES.add(name)
+        if area_input:
+            AREA_INPUT.add(name)
         return fn
     return deco
 

@@ -228,7 +228,7 @@ def make_legacy(cfg: ModeConfig, device="cuda", mesh=None):
     return init, step
 
 
-@register("legacy", space=True)
+@register("legacy")
 def legacy_mode(cfg: ModeConfig, device="cuda", mesh=None):
     """Registry wrapper returning just the red-edge overlay frame."""
     init, step = make_legacy(cfg, device=device, mesh=mesh)

@@ -17,17 +17,22 @@ RANSAC's SVDs; see its docstring), and a step that bins a histogram with
 ``torch.bincount`` (``ops/hist.py``: legacy, android) waits twice, as
 bincount reads its input's min and max from a CUDA tensor.
 
-The particle modes, the four mean-subtracted HSV modes and the three
-trail modes have a space form (``common.SPACE_MODES``; factory(cfg,
-device, mesh)): each rank resizes its band of rows, the bands' grays
-are gathered into the whole frame on every rank (``_space_prep``) and
-every rank computes the whole frame's flow or tracks; what is kept per
-pixel (the rings, the trail canvas) and what is drawn are the band's.
-The exposure modes averageHSV, timex and brightColor keep per-pixel
-state only: each rank resizes and keeps its band and exchanges nothing.
-Each mode's docstring says what else is exchanged; frames and states
-equal one process's bit for bit. An exchange on a gloo group waits on
-the card (``parallel/mesh.py``).
+Every mode has a space form (factory(cfg, device, mesh); ``common.
+register``): each rank resizes its band of rows, except as said of
+android and phaseCorrelate below. The particle modes,
+the four mean-subtracted HSV modes, the three trail modes and
+globalOrientation gather the bands' grays into the whole frame on every
+rank (``_space_prep``), stabilizeTPU the bands' colour frames, and
+every rank computes the whole frame's flow, tracks, homography or
+orientation; android and phaseCorrelate, which resize every frame with
+INTER_AREA, are fed the whole frame on every rank (``common.
+AREA_INPUT``) and exchange nothing. What is kept per pixel (the rings,
+the trail canvas) and what is drawn are the band's. The exposure modes
+averageHSV, timex and brightColor keep per-pixel state only: each rank
+resizes and keeps its band and exchanges nothing. Each mode's docstring
+says what else is exchanged; frames and states equal one process's bit
+for bit. An exchange on a gloo group waits on the card
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -131,16 +136,20 @@ def track_points(pts: torch.Tensor, prev_gray: torch.Tensor,
 
 
 def _space_prep(raw, cfg: ModeConfig, dev, mesh, rows, src=None,
-                first=False):
+                first=False, colour=False):
     """``prep_frame`` of this rank's band (`rows`, ``space_rows``) ->
     (the band of the resized frame, the whole frame's gray: the bands'
     grays gathered over the 'space' group); prep_frame's own with rows
-    None."""
+    None. `colour`: the bands' resized BGR frames are gathered instead
+    (3 x the bytes) -> (the whole resized frame, its gray)."""
     resized, gray = prep_frame(to_device(raw, dev), cfg, first=first,
                                rows=rows, src=src)
-    if rows is not None:
-        gray = space_gather_rows(mesh, gray, "gray bands")
-    return resized, gray
+    if rows is None:
+        return resized, gray
+    if colour:
+        resized = space_gather_rows(mesh, resized, "frame bands")
+        return resized, bgr_to_gray(resized)
+    return resized, space_gather_rows(mesh, gray, "gray bands")
 
 
 def _band(cfg: ModeConfig, rows) -> "tuple[int, int]":
@@ -158,7 +167,24 @@ def shear_rows(rows: "tuple[int, int]", frame_h: int,
     return max(rows[0] - offset, 0), min(rows[1] + offset, frame_h)
 
 
-@register("timelines", space=True)
+def android_rows(rows: "tuple[int, int]", frame_h: int,
+                 localwin: int = 20) -> "tuple[int, int]":
+    """The frame rows an android rank keeps its accumulator over: its
+    band `rows` and every row of each window of ``classify.
+    android_local_rip`` that covers a pixel of the band. The windows are
+    2 x localwin rows tall, anchored every localwin rows on the frame's
+    grid below frame_h - 2 x localwin, so the band's pixels read those
+    anchored in (i0 - 2 x localwin, i1)."""
+    win = 2 * localwin
+    i0, i1 = rows
+    anchors = [a for a in range(0, max(frame_h - win, 0), localwin)
+               if i0 - win < a < i1]
+    if not anchors:
+        return rows
+    return min(i0, anchors[0]), max(i1, anchors[-1] + win)
+
+
+@register("timelines")
 def timelines(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form (mesh.space K > 1; ``common.SPACE_MODES``): each
     rank resizes its band of the frame, the bands' grays are gathered
@@ -184,7 +210,8 @@ def timelines(cfg: ModeConfig, device="cuda", mesh=None):
         row0 = 0 if rows is None else rows[0]
         out = draw.draw_polyline(resized, tl.vertices, RED, thickness=2,
                                  band=(row0, cfg.ydim))
-        out = draw.draw_circles(out, tl.vertices, 4, BLUE, row0=row0)
+        out = draw.draw_circles(out, tl.vertices, 4, BLUE,
+                                 band=(row0, cfg.ydim))
         return TimelinesState(gray, tl, state.framecount + 1), out
 
     return init, step
@@ -202,7 +229,7 @@ class StreaklinesState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("streaklines", space=True)
+@register("streaklines")
 def streaklines(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form as timelines': every system's vertices in one
     ``track_points`` call (one K3 launch a rank), the systems advanced
@@ -235,11 +262,11 @@ def streaklines(cfg: ModeConfig, device="cuda", mesh=None):
         live = torch.arange(cap, device=dev)[None, :] < count[:, None]
         for i in range(n):
             out = draw.draw_circles(out, state.gens[i:i + 1], 3, GREEN,
-                                    row0=row0)
+                                    band=(row0, cfg.ydim))
             out = draw.draw_polyline(out, verts[i], RED, 1, valid=live[i],
                                      band=(row0, cfg.ydim))
             out = draw.draw_circles(out, verts[i], 2, BLUE, valid=live[i],
-                                    row0=row0)
+                                    band=(row0, cfg.ydim))
         return StreaklinesState(gray, state.gens, verts, count,
                                 state.framecount + 1), out
 
@@ -256,7 +283,7 @@ class PopulationMapState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("populationMap", space=True)
+@register("populationMap")
 def population_map(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form as timelines': the vertices through
     ``track_points``, the dots drawn and blended on the rank's band (the
@@ -280,7 +307,7 @@ def population_map(cfg: ModeConfig, device="cuda", mesh=None):
             state.pop.vertices, state.prev_gray, gray, cfg.lk, mesh, rows))
         # translucent dispersal dots (ripcurrents_module.cpp:1188-1195)
         overlay = draw.draw_circles(resized, pop.vertices, 10, RED,
-                                    row0=0 if rows is None else rows[0])
+                                    band=(_band(cfg, rows)[0], cfg.ydim))
         out = draw.blend(overlay, resized, 0.5, 0.5)
         return PopulationMapState(gray, pop, state.framecount + 1), out
 
@@ -297,7 +324,7 @@ class RedPointsState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("flowRedPoints", space=True)
+@register("flowRedPoints")
 def flow_red_points(cfg: ModeConfig, device="cuda", mesh=None):
     """An LK-advected red dot cloud seeded on a coarse grid. The space
     form as timelines': the dots through ``track_points``, each rank
@@ -319,7 +346,7 @@ def flow_red_points(cfg: ModeConfig, device="cuda", mesh=None):
         pts = track_points(state.pts, state.prev_gray, gray,
                            LKParams.red_points(), mesh, rows)
         out = draw.draw_circles(resized, pts, 2, RED,
-                                row0=0 if rows is None else rows[0])
+                                band=(_band(cfg, rows)[0], cfg.ydim))
         return RedPointsState(gray, pts, state.framecount + 1), out
 
     return init, step
@@ -426,14 +453,13 @@ def draw_vertex_line(frame_u8, seeds, fc, band=None):
     polyline, and the frame count. With band=(row0, frame_h), frame_u8
     is rows [row0, row0 + its height) of a frame_h-row frame and gets
     those rows of the whole frame's drawing."""
-    row0 = band[0] if band else 0
-    out = draw.draw_circles(frame_u8, seeds[:1], 4, BLUE, row0=row0)
+    out = draw.draw_circles(frame_u8, seeds[:1], 4, BLUE, band=band)
     out = draw.draw_polyline(out, seeds, RED, 2, band=band)
-    out = draw.draw_circles(out, seeds[1:], 4, BLUE, row0=row0)
-    return draw.draw_frame_count(out, fc, row0=row0)
+    out = draw.draw_circles(out, seeds[1:], 4, BLUE, band=band)
+    return draw.draw_frame_count(out, fc, row0=band[0] if band else 0)
 
 
-@register("streamlines", space=True)
+@register("streamlines")
 def streamlines_mode(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form as ``_trail_mode``'s."""
     return _trail_mode(
@@ -441,7 +467,7 @@ def streamlines_mode(cfg: ModeConfig, device="cuda", mesh=None):
         lambda dev: torch.tensor([[300.0, 300.0]], device=dev))  # main.cpp:240
 
 
-@register("timelinesOnSubtractAverageVector", space=True)
+@register("timelinesOnSubtractAverageVector")
 def timelines_on_subtract(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form as ``_trail_mode``'s: the mean subtracted is the
     whole flow's, which every rank holds."""
@@ -456,7 +482,7 @@ def timelines_on_subtract(cfg: ModeConfig, device="cuda", mesh=None):
                        seeds, subtract=True)
 
 
-@register("timelinesFarne", space=True)
+@register("timelinesFarne")
 def timelines_farne(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form as ``_trail_mode``'s; each rank draws the vertex
     line and the frame count on its band (``draw_vertex_line``)."""
@@ -480,7 +506,7 @@ class SubtractAverageState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("subtructAverageVector", gray_input=True, space=True)
+@register("subtructAverageVector", gray_input=True)
 def subtract_average_vector(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form (mesh.space K > 1; ``common.SPACE_MODES``): the
     bands' grays are gathered (``_space_prep``, the step's one exchange)
@@ -517,7 +543,7 @@ class WindowedState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("subtructAverageVectorWithWindow", space=True)
+@register("subtructAverageVectorWithWindow")
 def subtract_average_windowed(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form: every rank computes the whole frame's flow from the
     gathered grays (``_space_prep``) and keeps the window's ring over its
@@ -563,7 +589,7 @@ class ShearState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("shearRate", space=True)
+@register("shearRate")
 def shear_rate(cfg: ModeConfig, device="cuda", mesh=None):
     """The space form: every rank computes the whole frame's flow from the
     gathered grays (``_space_prep``) and keeps the ring over its band and
@@ -621,7 +647,7 @@ GOLD = (0, 215, 255)
 LIME = (0, 255, 0)
 
 
-@register("averageVector", gray_input=True, space=True)
+@register("averageVector", gray_input=True)
 def average_vector_mode(cfg: ModeConfig, device="cuda", mesh=None):
     """The 300-frame counter-flow arrow detector as a standalone mode.
 
@@ -662,7 +688,7 @@ def average_vector_mode(cfg: ModeConfig, device="cuda", mesh=None):
         a = av.global_angle_rad
         tip = center + torch.stack([torch.cos(a) * 10.0,
                                     torch.sin(a) * 50.0])[None]
-        img = draw.draw_circles(img, center, 3, GOLD, row0=row0)
+        img = draw.draw_circles(img, center, 3, GOLD, band=band)
         img = draw.draw_arrows(img, center, tip,
                                torch.ones(1, dtype=torch.bool, device=dev),
                                GOLD, 2, 0.2, band=band)
@@ -676,7 +702,8 @@ def average_vector_mode(cfg: ModeConfig, device="cuda", mesh=None):
         tips = anchors + torch.stack([torch.cos(ang), torch.sin(ang)],
                                      -1) * 10.0
         mask = av.counter_mask[1:, 1:].reshape(-1)
-        img = draw.draw_circles(img, anchors, 1, LIME, valid=mask, row0=row0)
+        img = draw.draw_circles(img, anchors, 1, LIME, valid=mask,
+                                band=band)
         img = draw.draw_arrows(img, anchors, tips, mask, LIME, 1, 0.4,
                                band=band)
         return AverageVectorModeState(fs, av.state, state.framecount + 1), img
@@ -692,7 +719,7 @@ def _u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
-@register("averageHSV", space=True)
+@register("averageHSV")
 def average_hsv(cfg: ModeConfig, device="cuda", mesh=None):
     """averageHSV (ripcurrents_module.cpp:365-376, driven from the dead
     main_old.cpp:360): the ring mean of the last BUFFER_FRAME frames. The
@@ -724,7 +751,7 @@ class TimexState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("timex", space=True)
+@register("timex")
 def timex(cfg: ModeConfig, device="cuda", mesh=None):
     """compute_timex (main.cpp:1195-1263): the running mean of the raw
     frames. The space form keeps the sum over the band's rows."""
@@ -755,7 +782,7 @@ class BrightColorState(NamedTuple):
     framecount: torch.Tensor
 
 
-@register("brightColor", space=True)
+@register("brightColor")
 def bright_color(cfg: ModeConfig, device="cuda", mesh=None):
     """compute_brightColor (main.cpp:1265-1382) over a ring of the last
     ``bright_window`` frames. The reference's quirks are kept: it converts
@@ -793,51 +820,72 @@ def bright_color(cfg: ModeConfig, device="cuda", mesh=None):
 # ---------------------------------------------------------------------------
 
 class PhaseCorrelateState(NamedTuple):
-    prev_resized: torch.Tensor  # the compensated previous frame (BGR u8)
+    # the compensated previous frame (BGR u8); a space rank keeps only
+    # the ROI's rows of it (``roi_rows``)
+    prev_resized: torch.Tensor
     framecount: torch.Tensor
 
 
-def _crop(img: torch.Tensor, y: int, x: int, h: int, w: int) -> torch.Tensor:
-    """img[y:y+h, x:x+w] with the start clamped so that the crop fits, as
-    ``jax.lax.dynamic_slice`` clamps it."""
-    y = min(max(y, 0), img.shape[0] - h)
-    x = min(max(x, 0), img.shape[1] - w)
-    return img[y:y + h, x:x + w]
+def roi_rows(cfg: ModeConfig) -> "tuple[int, int]":
+    """The frame rows [y, y + h) of phaseCorrelate's ROI (x, y, w, h),
+    its start clamped so that it fits, as ``jax.lax.dynamic_slice``
+    clamps it."""
+    y, h = cfg.phase_roi[1], cfg.phase_roi[3]
+    y = min(max(y, 0), cfg.ydim - h)
+    return y, y + h
 
 
-@register("phaseCorrelate")
-def phase_correlate_mode(cfg: ModeConfig, device="cuda"):
+@register("phaseCorrelate", area_input=True)
+def phase_correlate_mode(cfg: ModeConfig, device="cuda", mesh=None):
     """compute_phaseCorrelate (main.cpp:1684-1775): the translation of a
     beach ROI between the compensated previous frame and the new one,
     undone by a bilinear translation. Every frame is resized with
-    INTER_AREA (main.cpp:1736)."""
+    INTER_AREA (main.cpp:1736).
+
+    The space form: each rank is fed the whole frame (``common.
+    AREA_INPUT``), resizes it as one process does and computes the
+    shift, with no exchange; each translates only its band's rows, which read |dy| + 1 rows past the
+    band, and the ROI's rows (``roi_rows``), which it keeps as the state:
+    the next shift reads no other row. Frames and the kept rows equal
+    one process's bit for bit."""
     dev = resolve_device(device)
     win = hanning_window(cfg.phase_roi[3], cfg.phase_roi[2], dev)
+    rows = space_rows(cfg, mesh)
+    keep = roi_rows(cfg) if rows else None
 
     def init(first_raw):
         resized, _ = prep_frame(to_device(first_raw, dev), cfg, first=True)
-        return PhaseCorrelateState(resized, _frame_zero(dev))
+        return PhaseCorrelateState(
+            resized if keep is None else resized[keep[0]:keep[1]],
+            _frame_zero(dev))
 
-    def step(state, raw):
+    def step(state, raw, src=None):
         resized, _ = prep_frame(to_device(raw, dev), cfg, first=True)
-        shift = phase_shift(state.prev_resized, resized, cfg.phase_roi, win)
-        corrected = translate(resized, -shift[0], -shift[1])
-        return PhaseCorrelateState(corrected, state.framecount + 1), \
-            corrected
+        shift = phase_shift(state.prev_resized, resized, cfg.phase_roi,
+                            win, prev_row0=keep[0] if keep else 0)
+        out = translate(resized, -shift[0], -shift[1], rows=rows)
+        prev = out if keep is None else translate(
+            resized, -shift[0], -shift[1], rows=keep)
+        return PhaseCorrelateState(prev, state.framecount + 1), out
 
     return init, step
 
 
 def phase_shift(prev_resized: torch.Tensor, resized: torch.Tensor, roi,
-                window: torch.Tensor) -> torch.Tensor:
+                window: torch.Tensor, prev_row0: int = 0) -> torch.Tensor:
     """phaseCorrelate's (dx, dy): the translation of the ROI (x, y, w, h)
     from the compensated previous frame to the new one, both (H, W, 3)
-    uint8 BGR. The mode undoes it with ``translate``."""
+    uint8 BGR (prev_resized may hold rows [prev_row0, ...) only, the
+    ROI's among them), the ROI's start clamped so that it fits. The mode
+    undoes it with ``translate``."""
     rx, ry, rw, rh = roi
-    pg = bgr_to_gray(prev_resized).to(torch.float32)
-    cg = bgr_to_gray(resized).to(torch.float32)
-    return phase_correlate(_crop(pg, ry, rx, rh, rw),
-                           _crop(cg, ry, rx, rh, rw), window).shift
+    y = min(max(ry, 0), resized.shape[0] - rh)
+    x = min(max(rx, 0), resized.shape[1] - rw)
+    pg = bgr_to_gray(prev_resized[y - prev_row0:y - prev_row0 + rh,
+                                  x:x + rw])
+    cg = bgr_to_gray(resized[y:y + rh, x:x + rw])
+    return phase_correlate(pg.to(torch.float32), cg.to(torch.float32),
+                           window).shift
 
 
 class StabilizeState(NamedTuple):
@@ -846,7 +894,7 @@ class StabilizeState(NamedTuple):
 
 
 @register("stabilizeTPU")
-def stabilize_tpu(cfg: ModeConfig, device="cuda"):
+def stabilize_tpu(cfg: ModeConfig, device="cuda", mesh=None):
     """Feature stabilization on the device (flow/feature_stab.py): Harris
     corners and patch matching (default) or the AKAZE-class engine
     (``stab_features="akaze"``, flow/akaze_tpu.py), a RANSAC homography
@@ -859,23 +907,33 @@ def stabilize_tpu(cfg: ModeConfig, device="cuda"):
     framecount) (``feature_stab.step_generator``), so a step is a
     function of its state and frame. Unlike the other modes' steps, this
     one waits on the card: reading the count waits for the previous
-    step, and each of RANSAC's two SVD calls waits twice."""
+    step, and each of RANSAC's two SVD calls waits twice.
+
+    The space form: each rank resizes its band, the bands are gathered
+    into the whole colour frame on every rank (``_space_prep``, one
+    exchange) and every rank runs the whole step: the features, RANSAC
+    from the same generator (so the same H), K8's warp of the whole frame
+    and the corrected frame's gray, which it keeps whole. Each outputs
+    its band's rows."""
     dev = resolve_device(device)
     if cfg.stab_features not in FEATURES:
         raise ValueError(f"stab_features {cfg.stab_features!r}: expected "
                          f"one of {FEATURES}")
+    rows = space_rows(cfg, mesh)
 
     def init(first_raw):
         _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
         return StabilizeState(gray, _frame_zero(dev))
 
-    def step(state, raw):
-        resized, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        resized, gray = _space_prep(raw, cfg, dev, mesh, rows, src,
+                                    colour=True)
         gen = step_generator(cfg.seed, int(state.framecount), dev)
         corrected, _, _ = stabilize_pair(state.prev_gray, gray, resized, gen,
                                          features=cfg.stab_features)
+        out = corrected if rows is None else corrected[rows[0]:rows[1]]
         return StabilizeState(bgr_to_gray(corrected),
-                              state.framecount + 1), corrected
+                              state.framecount + 1), out
 
     return init, step
 
@@ -886,11 +944,21 @@ class GlobalOrientationState(NamedTuple):
 
 
 @register("globalOrientation", gray_input=True)
-def global_orientation_mode(cfg: ModeConfig, device="cuda"):
+def global_orientation_mode(cfg: ModeConfig, device="cuda", mesh=None):
     """globalOrientation (ripcurrents_module.cpp:319-359) as a mode: the
     motion-history image, the global direction arrow and a 30-px grid of
-    local orientation arrows."""
+    local orientation arrows.
+
+    The space form: the bands' grays are gathered (``_space_prep``, one
+    exchange) and every rank runs the whole step, since its maximum,
+    12-bin vote and weighted mean are reductions over the frame that
+    band sums, added, would round otherwise; each rank colours its band
+    of the motion-history image and draws its band of the circles and
+    arrows."""
     dev = resolve_device(device)
+    rows = space_rows(cfg, mesh)
+    row0, band_h = _band(cfg, rows)
+    band = (row0, cfg.ydim)
     center = torch.tensor([[cfg.xdim / 2.0, cfg.ydim / 2.0]], device=dev)
     ys, xs = np.mgrid[0:cfg.ydim:30, 0:cfg.xdim:30]
     grid = torch.from_numpy(np.stack([xs.ravel(), ys.ravel()], -1).astype(
@@ -903,19 +971,22 @@ def global_orientation_mode(cfg: ModeConfig, device="cuda"):
         _, gray = prep_frame(to_device(first_raw, dev), cfg, first=True)
         return GlobalOrientationState(gray, _frame_zero(dev))
 
-    def step(state, raw):
-        _, gray = prep_frame(to_device(raw, dev), cfg)
+    def step(state, raw, src=None):
+        _, gray = _space_prep(raw, cfg, dev, mesh, rows, src)
         res = global_orientation_step(state.prev_gray, gray)
-        out = _u8(res.mhi_norm * 255.0)[..., None].repeat(1, 1, 3)
+        mhi = res.mhi_norm[row0:row0 + band_h]
+        out = _u8(mhi * 255.0)[..., None].repeat(1, 1, 3)
         ar = res.angle_deg * math.pi / 180.0
         tip = center + torch.stack([torch.cos(ar) * 10.0,
                                     torch.sin(ar) * 50.0])[None, :]
-        out = draw.draw_circles(out, center, 3, GOLD)
-        out = draw.draw_arrows(out, center, tip, one, GOLD, 2, 0.2)
+        out = draw.draw_circles(out, center, 3, GOLD, band=band)
+        out = draw.draw_arrows(out, center, tip, one, GOLD, 2, 0.2,
+                               band=band)
         gr = res.orientation.orientation_deg[gy, gx] * math.pi / 180.0
         tips = grid + torch.stack([torch.cos(gr), torch.sin(gr)], -1) * 10.0
-        out = draw.draw_circles(out, grid, 1, (0, 215, 0))
-        out = draw.draw_arrows(out, grid, tips, every, (0, 215, 0), 1, 0.4)
+        out = draw.draw_circles(out, grid, 1, (0, 215, 0), band=band)
+        out = draw.draw_arrows(out, grid, tips, every, (0, 215, 0), 1, 0.4,
+                               band=band)
         return GlobalOrientationState(gray, state.framecount + 1), out
 
     return init, step

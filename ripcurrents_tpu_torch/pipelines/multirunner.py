@@ -27,20 +27,18 @@ JAX's runner resizes first frames on the host with cv2 INTER_AREA only
 to stack them for vmap; a loop of per-stream states has nothing to
 stack.
 
-Rows over a 'space' group (`space` K > 1, the modes of
-``common.SPACE_MODES``: legacy, timelines and the other particle modes
-streaklines, populationMap and flowRedPoints, the dense modes
-subtructAverageVector, subtructAverageVectorWithWindow, shearRate and
-averageVector, which keep their rings over the band's rows, the trail
-modes streamlines, timelinesOnSubtractAverageVector and timelinesFarne,
-which keep their trail canvas so, and the exposure modes averageHSV,
-timex and brightColor): a world of
+Rows over a 'space' group (`space` K > 1; every mode has a space form,
+``common.register``: legacy splits its flow over slabs, the modes that
+need the whole frame gather the bands' grays or colour frames and keep
+per pixel only their band's rows, android and phaseCorrelate resize the
+whole frame on every rank (``common.AREA_INPUT``), averageHSV, timex and
+brightColor keep their band and exchange nothing): a world of
 S x K processes (the farm's flags; every process runs the same command
 with the same videos) forms S 'stream' groups of K 'space' ranks
 (``parallel/mesh.py``). Stream group g runs streams [g N/S, (g+1) N/S);
 each rank of its 'space' group decodes them, uploads only the source
 rows of its band (the pump makes the band itself where its rows resize
-exactly), steps the band with the mode's space form, downloads its
+exactly; AREA_INPUT's modes upload the whole frame), steps the band with the mode's space form, downloads its
 output band once a chunk, and the group's first rank gathers the bands
 and writes the stream's video and the metrics. The group's backend is
 NCCL when each rank has a card of its own, gloo (device tensors staged
@@ -66,8 +64,8 @@ from ripcurrents_tpu_torch.parallel import mesh as pmesh
 from ripcurrents_tpu_torch.parallel.distributed import local_stream_slice
 from ripcurrents_tpu_torch.parallel.mesh import Mesh
 from ripcurrents_tpu_torch.pipelines import legacy, runner
-from ripcurrents_tpu_torch.pipelines.common import (MODES, SPACE_MODES,
-                                                    ModeConfig, space_rows)
+from ripcurrents_tpu_torch.pipelines.common import (MODES, ModeConfig,
+                                                    space_rows)
 from ripcurrents_tpu_torch.pipelines.runner import RunStats
 
 
@@ -112,8 +110,8 @@ def run_videos(mode: str, videos: Sequence[str],
     when there is none; pass "cpu" for the plain PyTorch versions.
 
     `space` K > 1 splits each frame's rows over K processes (module doc):
-    the process group must be initialized with S x K ranks, N divisible
-    by S, and `mode` one of ``SPACE_MODES`` (else ValueError). The
+    the process group must be initialized with S x K ranks and N
+    divisible by S (else ValueError). The
     returned states hold this rank's bands; the metrics (written by the
     first rank of each 'space' group, `<stem>_g<g><ext>` when there are
     several groups) add the mesh, the backend, the halo and each rank's
@@ -131,10 +129,6 @@ def run_videos(mode: str, videos: Sequence[str],
     split = space > 1
     names = list(range(len(videos)))
     if split:
-        if mode not in SPACE_MODES:
-            raise ValueError(f"--mesh-space {space}: mode {mode!r} has no "
-                             f"space form; the modes with one are "
-                             f"{sorted(SPACE_MODES)}")
         if len(videos) % (size // space):
             raise ValueError(f"--mesh-space {space}: {len(videos)} streams "
                              f"do not divide over {size // space} stream "

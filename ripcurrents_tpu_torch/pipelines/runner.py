@@ -56,7 +56,8 @@ from ripcurrents_tpu_torch import resolve_device
 from ripcurrents_tpu_torch.io import native as io_native
 from ripcurrents_tpu_torch.io import video as io_video
 from ripcurrents_tpu_torch.ops.image import band_source_rows
-from ripcurrents_tpu_torch.pipelines.common import (GRAY_INPUT, MODES,
+from ripcurrents_tpu_torch.pipelines.common import (AREA_INPUT, GRAY_INPUT,
+                                                    MODES,
                                                     ModeConfig)
 # mode registration side effects
 from ripcurrents_tpu_torch.pipelines import android as _android  # noqa: F401
@@ -287,9 +288,12 @@ def _open_source(mode: str, frames_iter, first: np.ndarray, cfg: ModeConfig,
     (``prep_frame``): the pump's band when the band's source rows resize
     to it exactly (``_band_pump_rows``; src = (i0, ydim)), else the
     source rows the device resize reads (src = (a, raw_h)). None
-    without rows."""
+    without rows, and for a mode of AREA_INPUT, whose rank is fed the
+    whole frame as one process is."""
     target = (cfg.ydim, cfg.xdim)
     pump = crop = src = None
+    if mode in AREA_INPUT:
+        rows = None
     want_pump = host_prep and video_in != "-" and \
         first.shape[:2] != target and io_native.available()
     if rows is not None:

@@ -98,9 +98,12 @@ def draw_polyline(img: torch.Tensor, pts: torch.Tensor, color,
 
 def draw_circles(img: torch.Tensor, centers: torch.Tensor, radius: int,
                  color, valid: "torch.Tensor | None" = None,
-                 row0: int = 0) -> torch.Tensor:
-    """Filled circles at centers (N, 2) (x, y), rounded half to even; img
-    may be rows [row0, ...) of the frame the centers are in."""
+                 band: "tuple[int, int] | None" = None) -> torch.Tensor:
+    """Filled circles at centers (N, 2) (x, y), rounded half to even.
+    `band` as ``draw_segments``: img gets the pixels of its rows that
+    drawing on the whole frame sets (a disc's pixels depend on its
+    centre only, so the frame's height is not read)."""
+    row0 = band[0] if band else 0
     if valid is None:
         valid = torch.ones(centers.shape[0], dtype=torch.bool,
                            device=centers.device)

@@ -22,7 +22,10 @@ the port. Tolerances, as measured at 120x160:
   one side): the integer shift of the test puts a column of samples
   within ~1e-5 px of the edge, so the two SVDs' H put it on either side
   (measured: 183 such pixels of 19200, a row and a column; the rest
-  equal).
+  equal);
+- RANSAC with collinear samples among its trials (a null space of two
+  dimensions: no single H for them): the refined H within H_PX and the
+  inlier count equal, as long as a trial in general position wins.
 """
 
 import numpy as np
@@ -199,6 +202,59 @@ def test_dlt_and_ransac_match_jax_on_its_samples():
     g1, g2 = (tfs.step_generator(0, 3, "cpu") for _ in range(2))
     assert torch.equal(tfs.ransac_homography(T(src), T(dst), T(good), g1)[0],
                        tfs.ransac_homography(T(src), T(dst), T(good), g2)[0])
+    _degenerate_samples_match_jax(src, true)
+
+
+def jax_ransac_on(src, dst, good, sel, thresh=2.0):
+    """JAX's ransac_homography on the given samples `sel` (trials, 4): its
+    trial, vote and refinement, made of its own functions. -> (H, inlier
+    count, every trial's count)."""
+    s, d, g = J(src), J(dst), J(good)
+    hs = jax.vmap(lambda k: jfs._dlt_homography(s[k], d[k], jnp.ones(4)))(
+        J(sel))
+    err = jnp.sum((jax.vmap(lambda h: jfs._apply_h(h, s))(hs) - d) ** 2, -1)
+    inl = (err < thresh * thresh) & g
+    counts = inl.sum(1)
+    best = jnp.argmax(counts)
+    h = jfs._dlt_homography(s, d, inl[best].astype(jnp.float32) +
+                            1e-6 * g.astype(jnp.float32))
+    h = h / jnp.where(jnp.abs(h[2, 2]) > 1e-9, h[2, 2], 1.0)
+    return np.asarray(h), int(counts[best]), np.asarray(counts)
+
+
+def _degenerate_samples_match_jax(src, true):
+    """RANSAC with collinear 4-point samples: 20 of the points lie on one
+    line and three of five trials draw 4 of them. A collinear sample's
+    8 x 9 system has a null space of two dimensions, so the two SVDs may
+    return any vector of it: those trials' H and votes differ (no single
+    answer), but a trial of points in general position wins on both
+    sides and the refined H and its inlier count agree as before. With
+    every trial collinear the answers differ (``ROADMAP.md`` queue 3)."""
+    src = src.copy()
+    src[:20, 0] = np.linspace(5, 150, 20, dtype=np.float32)
+    src[:20, 1] = 0.5 * src[:20, 0] + 10
+    q = np.c_[src, np.ones(len(src), np.float32)] @ true.T
+    dst = (q[:, :2] / q[:, 2:]).astype(np.float32)
+    good = np.ones(len(src), bool)
+    sel = np.array([[0, 5, 10, 15], [1, 6, 11, 19], [30, 60, 90, 120],
+                    [2, 3, 4, 7], [40, 80, 150, 199]])
+    jh, jn, jc = jax_ransac_on(src, dst, good, sel)
+    th, tn = tfs.ransac_homography(T(src), T(dst), T(good), sel=T(sel))
+    assert int(tn) == jn == len(src)
+    assert corner_px(th.numpy(), jh) <= H_PX
+    assert corner_px(th.numpy(), true) <= 0.01
+    assert jc[2] == jc[4] == len(src)
+    # the collinear samples' DLT systems: two singular values ~0
+    for k in sel[[0, 1, 3]]:
+        x, y = src[k, 0].astype(np.float64), src[k, 1].astype(np.float64)
+        u, v = dst[k, 0].astype(np.float64), dst[k, 1].astype(np.float64)
+        o, z = np.ones(4), np.zeros(4)
+        a = np.concatenate([np.stack([x, y, o, z, z, z, -u * x, -u * y, -u],
+                                     1),
+                            np.stack([z, z, z, x, y, o, -v * x, -v * y, -v],
+                                     1)])
+        sv = np.linalg.svd(a, compute_uv=False)
+        assert sv[-1] / sv[0] < 1e-9 and sv[-2] / sv[0] < 1e-9, sv
 
 
 def test_warp_by_homography_matches_jax():

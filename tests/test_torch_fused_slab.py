@@ -155,5 +155,5 @@ def test_band_ops_equal_frame_rows():
     for i0, i1 in ((0, 48), (48, 96)):
         part = draw.draw_circles(draw.draw_polyline(
             canvas[i0:i1], pts, (0, 0, 100), thickness=2, band=(i0, 96)),
-            pts, 4, (100, 0, 0), row0=i0)
+            pts, 4, (100, 0, 0), band=(i0, 96))
         assert torch.equal(part, whole[i0:i1])

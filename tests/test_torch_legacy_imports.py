@@ -54,3 +54,36 @@ def test_port_imports_no_jax():
         "kernels", "ops.image", "ops.hist", "ops.morphology",
         "dynamics.advect", "pipelines.common", "pipelines.legacy",
         "pipelines.runner", "cli")} <= mods
+
+
+def test_chip_smoke_detail_calls_bind():
+    """Every call of chip_smoke.py's ``say`` and ``summary`` binds to
+    their signatures (a stray ``flush=`` would raise TypeError in a
+    profiler fallback, on the card only), and ``say`` writes a
+    fallback's text to the details file while ``main()`` runs."""
+    import ast
+    import importlib.util
+    import inspect
+    import io
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_calls", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    sigs = {f: inspect.signature(getattr(smoke, f))
+            for f in ("say", "summary")}
+    calls = [n for n in ast.walk(ast.parse(path.read_text()))
+             if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+             and n.func.id in sigs]
+    assert len(calls) > 50
+    for n in calls:
+        sigs[n.func.id].bind(*[None] * len(n.args),
+                             **{k.arg: None for k in n.keywords})
+    details = io.StringIO()
+    smoke._DETAILS.append(details)
+    try:
+        smoke.say("    torch.profiler recorded no device time in 3 "
+                  "sessions; timed by CUDA events around the calls instead")
+    finally:
+        smoke._DETAILS.clear()
+    assert "timed by CUDA events" in details.getvalue()

@@ -219,22 +219,26 @@ def test_timelines_two_ranks_match_jax(timelines_two_ranks, monkeypatch):
 
 
 def test_mesh_space_refuses_modes_without_space_form(capsys):
-    """--mesh-space 2 with the farm's flags exits 2 before any work for a
-    mode without a space form, naming the modes that have one; without
-    --videos too."""
+    """Every registered mode has a space form: --mesh-space 2 with the
+    farm's flags and --videos is refused for none of them. It still exits
+    2 before any work without --videos, with a special mode, and with a K
+    that does not divide the frame height."""
     farm = ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
             "--process-id", "0", "--mesh-space", "2", "--device", "cpu"]
-    assert cli.main(["--videos", "a.mp4", "--mode", "android",
-                     *farm]) == 2
+    parser = cli.build_parser()
+    for mode in sorted(multirunner.MODES):
+        assert cli._refuse(parser.parse_args(
+            ["--videos", "a.mp4", "--mode", mode, *farm])) is None, mode
+    assert len(multirunner.MODES) == 19
     assert cli.main(["a.mp4", "--mode", "legacy", *farm]) == 2
-    err = capsys.readouterr().err
-    assert "--mesh-space 2 runs the modes with a space form " \
-        "(averageHSV, averageVector, brightColor, flowRedPoints, legacy, " \
-        "populationMap, shearRate, streaklines, streamlines, " \
-        "subtructAverageVector, subtructAverageVectorWithWindow, timelines, " \
-        "timelinesFarne, timelinesOnSubtractAverageVector, timex); " \
-        "--mode android has none" in err
-    assert "--mesh-space 2 needs --videos" in err
-    for mode in ("phaseCorrelate", "globalOrientation", "stabilizeTPU"):
-        assert cli.main(["--videos", "a.mp4", "--mode", mode, *farm]) == 2
-        assert f"--mode {mode} has none" in capsys.readouterr().err
+    assert "--mesh-space 2 needs --videos" in capsys.readouterr().err
+    assert cli.main(["--videos", "a.mp4", "--mode", "stabilize",
+                     *farm]) == 2
+    assert "--videos cannot be combined with --mode stabilize" in \
+        capsys.readouterr().err
+    odd = [x if x != "2" or i != farm.index("--mesh-space") + 1 else "7"
+           for i, x in enumerate(farm)]
+    odd[farm.index("--num-processes") + 1] = "7"
+    assert cli.main(["--videos", "a.mp4", "--mode", "android", *odd]) == 2
+    assert "--mesh-space 7 does not divide the frame height 480" in \
+        capsys.readouterr().err
